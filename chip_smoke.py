@@ -1,0 +1,580 @@
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (nonzero exit) if it fails:
+
+1. build every kernel of the serving path from the checkout: the CUDA
+   sources in ``src/repro_torch/csrc`` (one ``nvcc`` each, all at once,
+   linked into one library under ``build/kernels/``) and the Triton
+   RMSNorm;
+2. hold each kernel against its plain PyTorch version on the card at the
+   serving path's shapes (tolerances below) and time kernel, plain version
+   and the nearest single PyTorch call;
+3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
+   through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
+   tokens, 32 new tokens each, greedy; every kernel's launch count must rise;
+4. trace a B=8 prefill and four decode steps of a server with every slot
+   busy with ``torch.profiler``: device operations and device busy time per
+   prefill and per decode step;
+5. compare the card's prefill logits and 8 teacher-forced decode steps with
+   the same model on the CPU's plain path;
+6. print the figures, the card's name and power limit, one ``kernels`` JSON
+   line, and as the last line ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device it exits nonzero before printing anything. It imports
+``torch`` and ``repro_torch`` only."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_ULP = 2.0 ** -7
+
+# tolerances, kernel vs plain version on the same card inputs: the kernels
+# sum in other orders (rmsnorm) and keep p in fp32 / rescale per key tile
+# (attention), so one bf16 rounding of the value for rmsnorm and three bf16
+# roundings of 1 for attention outputs (averages of N(0, 1) values)
+TOL = {"rmsnorm": (BF16_ULP, 1e-5),
+       "decode_attention": (BF16_ULP, 3 * BF16_ULP),
+       "flash_attention": (BF16_ULP, 3 * BF16_ULP)}
+# card vs CPU plain path, full model: 32 layers of bf16 rounding in other
+# orders (cuBLAS and the kernels vs CPU GEMMs and the plain versions); the
+# logits may differ by this share of their largest magnitude
+LOGIT_TOL = 0.05
+
+REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
+    "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:71",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:76",
+}
+SOURCES = {
+    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/rmsnorm.py"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def cuda_ms(fn, reps=50, warmup=5):
+    """Mean time of ``fn()`` over ``reps`` back-to-back eager calls (CUDA
+    events): the device time, or the host's launch time where the host
+    cannot keep the device busy."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so host launch
+    cost drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def bound(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(name, got, want, case):
+    import torch
+    rtol, atol = TOL[name]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name} {case}: non-finite output")
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name} {case}: {int(bad.sum())} elements beyond rtol={rtol} "
+            f"atol={atol}; max_abs_err={float(err.max())}")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def timings(kernel, plain, library=None):
+    """Device times (CUDA graph replay) of the kernel's wrapper, its plain
+    version and the library call, plus the kernel's eager time."""
+    return dict(ms=graph_ms(kernel), eager_ms=cuda_ms(kernel),
+                plain_ms=graph_ms(plain, reps=5),
+                library_ms=None if library is None else graph_ms(library))
+
+
+def sdpa(q, k, v, mask):
+    """The one PyTorch call computing masked GQA attention (model layout
+    in, heads-major views to SDPA), or None where this torch lacks
+    ``enable_gqa``."""
+    import torch.nn.functional as F
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    try:
+        call()
+    except TypeError:
+        return None
+    return call
+
+
+def kernel_cases(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    out = {"rmsnorm": [], "decode_attention": [], "flash_attention": []}
+
+    # rmsnorm: decode rows (8) and a full prefill batch (8 x 256), d = 960,
+    # plain and with the residual add in front
+    d = 960
+    for n in (8, 2048):
+        for residual in (False, True):
+            x, w = randn((n, d)), randn((d,), 0.25) + 1
+            r = randn((n, d)) if residual else None
+            got = rmsnorm_op(x, w, residual=r)
+            want = rmsnorm_ref(x, w, residual=r)
+            pairs = zip(got, want) if residual else [(got, want)]
+            case = f"N={n} d={d} residual={residual}"
+            err = max(check("rmsnorm", g, e, case) for g, e in pairs)
+            nbytes = (2 * n * d * 2 + d * 2) * (2 if residual else 1)
+            lib = None
+            if not residual and hasattr(F, "rms_norm"):
+                lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
+            out["rmsnorm"].append(dict(
+                case=case, max_abs_err=err,
+                bound=bound(nbytes, 4 * n * d, FP32_FLOPS),
+                **timings(lambda: rmsnorm_op(x, w, residual=r),
+                          lambda: rmsnorm_ref(x, w, residual=r), lib)))
+
+    # decode: B=8 slots, 15/5 heads, D=64, Smax=256, mixed lengths incl. 0
+    # and Smax, full attention and a window
+    B, Hq, Hkv, D, Smax = 8, 15, 5, 64, 256
+    lengths = [0, 1, 37, 128, 200, 255, 256, 64]
+    for window in (0, 32):
+        q = randn((B, 1, Hq, D))
+        k, v = randn((B, Smax, Hkv, D)), randn((B, Smax, Hkv, D))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = decode_attention_op(q, k, v, ln, window=window)
+        want = decode_attention_ref(q, k, v, ln, window=window)
+        case = f"B={B} Hq={Hq} Hkv={Hkv} D={D} Smax={Smax} window={window}"
+        err = check("decode_attention", got, want, case)
+        # positions each sample reads: [max(0, len - window), min(len, Smax))
+        used = [min(n, Smax) - (max(0, n - window) if window else 0)
+                for n in lengths]
+        nbytes = 2 * B * Hq * D * 2 + B * 4 + 2 * sum(used) * Hkv * D * 2
+        flops = 4 * Hq * D * sum(used)
+        pos = torch.arange(Smax, device=dev)
+        lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
+        mask = ((pos[None] < ln[:, None])
+                & (pos[None] >= lo[:, None]))[:, None, None, :]
+        out["decode_attention"].append(dict(
+            case=case, max_abs_err=err,
+            bound=bound(nbytes, flops, BF16_TENSOR_FLOPS),
+            **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
+                      lambda: decode_attention_ref(q, k, v, ln,
+                                                   window=window),
+                      sdpa(q, k, v, mask))))
+
+    # flash prefill: B in {1, 8}, Sq = Sk in {8, 24 (ragged, one empty
+    # prompt), 256}, kv_valid as the ladder-padded prefill passes it
+    for S in (8, 24, 256):
+        for B in (1, 8):
+            lens = {8: [8, 5, 8, 3, 7, 8, 1, 6],
+                    24: [24, 17, 3, 0, 24, 9, 20, 12],
+                    256: [256, 200, 129, 256, 131, 140, 250, 180]}[S][:B]
+            q = randn((B, S, Hq, D))
+            k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = flash_attention_op(q, k, v, kv_valid=kv)
+            want = flash_attention_ref(q, k, v, kv_valid=kv)
+            case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
+            err = check("flash_attention", got, want, case)
+            # keys each row attends: causal and below kv_valid
+            n_valid = sum(min(r + 1, n) for n in lens for r in range(S)) * Hq
+            # bytes: q read and out written for every row; K and V rows
+            # below kv_valid (the last row's causal walk reaches them all);
+            # a sample with kv_valid == 0 reads only V, the mean over the key
+            # blocks the plain path visits, all S rows at S <= 512
+            kv_rows = sum(2 * n if n else S for n in lens)
+            nbytes = 2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2 + B * 4
+            pos = torch.arange(S, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])[None]
+                    & (pos[None, None, :] < kv[:, None, None]))[:, None]
+            out["flash_attention"].append(dict(
+                case=case, max_abs_err=err,
+                bound=bound(nbytes, 4 * D * n_valid, BF16_TENSOR_FLOPS),
+                **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
+                          lambda: flash_attention_ref(q, k, v, kv_valid=kv),
+                          sdpa(q, k, v, mask))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3 / 4: the serving path at full width, and parity with the CPU
+# ---------------------------------------------------------------------------
+
+def serve(model, params, dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.serving.engine import LMServer
+
+    ops = {"rmsnorm": rmsnorm_op, "decode_attention": decode_attention_op,
+           "flash_attention": flash_attention_op}
+    rng = np.random.default_rng(0)
+    vocab = model.cfg.vocab_size
+
+    def make_server():
+        return LMServer(model, device=dev, slots=8, max_len=256,
+                        temperature=0.0, seed=0)
+
+    # warm-up: cuBLAS handles, Triton compile, allocator; not measured
+    warm = make_server()
+    for n in (8, 100):
+        warm.submit(rng.integers(0, vocab, size=n), max_new_tokens=4)
+    warm.run(params)
+    torch.cuda.synchronize()
+
+    srv = make_server()
+    prompts = [rng.integers(0, vocab, size=int(n))
+               for n in rng.integers(8, 201, size=16)]
+    rids = [srv.submit(p, max_new_tokens=32) for p in prompts]
+    decode_s = []
+    inner = srv._decode_once
+
+    def timed_decode(params):
+        t0 = time.perf_counter()
+        inner(params)                 # ends in the packed host copy
+        if srv.decode_steps > len(decode_s):
+            decode_s.append(time.perf_counter() - t0)
+
+    srv._decode_once = timed_decode
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    srv.run(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: op.launches for name, op in ops.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name}: no kernel launch on the main path")
+    done = [srv.completed[r] for r in rids]
+    if len(done) != 16 or any(len(r.tokens) != 32 for r in done):
+        raise AssertionError("not every request completed with 32 tokens")
+    if any(not 0 <= t < vocab for r in done for t in r.tokens):
+        raise AssertionError("token out of vocabulary")
+    st = srv.stats
+    if st["host_syncs_per_decode_step"] != 1.0:
+        raise AssertionError(f"host syncs per decode step: {st}")
+    tokens = sum(len(r.tokens) for r in done)
+    return dict(launches=launches, wall_s=wall, tokens=tokens,
+                decode_steps=st["decode_steps"],
+                decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+                tokens_per_s=tokens / wall,
+                prefill_dispatches=st["prefill_dispatches"],
+                rung_dispatches=dict(srv.rung_dispatches))
+
+
+def prefill_rungs(model, params, dev):
+    """Host-clock ms of one B=8 ladder-padded prefill per rung (median of 3,
+    ending in a synchronise)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import prompt_length_ladder
+
+    rng = np.random.default_rng(1)
+    out = {}
+    for rung in prompt_length_ladder(256):
+        toks = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, size=(8, rung)).astype(np.int32)).to(dev)
+        lens = torch.full((8,), rung, dtype=torch.int32, device=dev)
+        lens[1::2] = max(1, rung - rung // 3)
+        batch = {"tokens": toks, "lengths": lens}
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, batch, max_len=256)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"prefill rung {rung}: non-finite logits")
+        out[rung] = 1e3 * sorted(times)[1]
+    return out
+
+
+def device_profile(model, params, dev, steps=4):
+    """A B=8 ladder-padded prefill at rung 256 and ``steps`` decode steps
+    of a server with all 8 slots busy, each under ``torch.profiler``:
+    device operations (kernels, copies) per prefill and per decode step, and
+    the device's busy time in each (the union of their intervals). None
+    where the trace holds no device events."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import LMServer
+
+    rng = np.random.default_rng(3)
+    vocab = model.cfg.vocab_size
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, vocab, size=(8, 256)).astype(np.int32)).to(dev),
+             "lengths": torch.from_numpy(rng.integers(
+                 129, 257, size=8).astype(np.int32)).to(dev)}
+    srv = LMServer(model, device=dev, slots=8, max_len=256, temperature=0.0,
+                   seed=0)
+    for n in rng.integers(8, 201, size=8):
+        srv.submit(rng.integers(0, vocab, size=int(n)),
+                   max_new_tokens=steps + 2)
+    for _ in range(8):                 # AIMD may admit fewer at a time
+        if len(srv._active) < 8:
+            srv._admit(params)
+    if len(srv._active) != 8:
+        raise AssertionError(f"profiled server holds {len(srv._active)} "
+                             f"requests, not 8")
+
+    def traced(fn, n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn(params)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not ops:
+            return None
+        busy_us, end = 0.0, float("-inf")
+        for s, e in sorted((o.time_range.start, o.time_range.end)
+                           for o in ops):
+            if e > end:
+                busy_us += e - max(s, end)
+                end = e
+        kernels = [o for o in ops if not o.name.startswith("Mem")]
+        return dict(device_ops=len(ops) / n, kernels=len(kernels) / n,
+                    busy_ms=busy_us / 1e3 / n)
+
+    return dict(prefill=traced(lambda p: model.prefill(p, batch,
+                                                       max_len=256), 1),
+                decode=traced(srv._decode_once, steps))
+
+
+def cpu_parity(cfg, params, dev):
+    """Prefill + 8 teacher-forced decode steps on the card and on the CPU's
+    plain path, same weights and tokens; max |logit difference| over the
+    largest |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import build_model
+
+    cpu_model = build_model(cfg, device="cpu")
+    gpu_model = build_model(cfg, device=dev)
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+    lens = np.array([64, 37], np.int32)
+    feeds = rng.integers(0, cfg.vocab_size, size=(8, 2, 1)).astype(np.int32)
+    results = []
+    for model, p, d in ((gpu_model, params, dev), (cpu_model, cpu_params, "cpu")):
+        logits, cache = model.prefill(
+            p, {"tokens": torch.from_numpy(toks).to(d),
+                "lengths": torch.from_numpy(lens).to(d)}, max_len=80)
+        seq = [logits.float().cpu()]
+        ln = torch.from_numpy(lens).to(d)
+        for t in feeds:
+            logits, cache = model.decode_step(p, cache,
+                                              torch.from_numpy(t).to(d), ln)
+            ln = ln + 1
+            seq.append(logits.float().cpu())
+        results.append(torch.stack(seq))
+    gpu, cpu = results
+    if not torch.isfinite(gpu).all():
+        raise AssertionError("non-finite logits on the card")
+    scale = float(cpu.abs().max())
+    err = (gpu - cpu).abs().amax(dim=(1, 2))
+    rel = [float(e) / scale for e in err]
+    if max(rel) > LOGIT_TOL:
+        raise AssertionError(f"card vs CPU logits: max |diff| / max |logit| "
+                             f"= {max(rel)} > {LOGIT_TOL} ({rel})")
+    agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
+    return dict(prefill_rel_err=rel[0], decode_rel_err=rel[1:],
+                logit_scale=scale, argmax_agreement=agree)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"build: CUDA kernels in {time.perf_counter() - t0:.1f} s")
+    for src, text in sorted(_build.ptxas_log.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    cases = kernel_cases(dev)
+    log(f"kernels vs plain: {time.perf_counter() - t0:.1f} s")
+    for kname, rows in cases.items():
+        for r in rows:
+            log(f"  {kname} {r['case']}: max_abs_err={r['max_abs_err']} "
+                f"ms={r['ms']} eager_ms={r['eager_ms']} "
+                f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
+                f"bound_ms={r['bound'][0]} ({r['bound'][1]})")
+
+    cfg = ARCHITECTURES["smollm-360m"]
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    log(f"model: {cfg.name} full width, {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params bf16")
+
+    run = serve(model, params, dev)
+    rungs = prefill_rungs(model, params, dev)
+    prof = device_profile(model, params, dev)
+    parity = cpu_parity(cfg, params, dev)
+    log(f"serve: {run['tokens']} tokens in {run['wall_s']:.3f} s "
+        f"({run['tokens_per_s']:.1f} tok/s), {run['decode_steps']} decode "
+        f"steps at {run['decode_ms_per_step']:.3f} ms/step; "
+        f"{run['prefill_dispatches']} prefill dispatches, per rung "
+        f"{run['rung_dispatches']}")
+    launches = run["launches"]
+    steps, prefills = run["decode_steps"], run["prefill_dispatches"]
+    log(f"launches on the main path: {launches}; per decode step: "
+        f"decode_attention {launches['decode_attention'] / steps}; per "
+        f"prefill: flash_attention {launches['flash_attention'] / prefills}; "
+        f"per decode step or prefill: rmsnorm "
+        f"{launches['rmsnorm'] / (steps + prefills)}")
+    log("prefill ms per rung (B=8): "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rungs.items()))
+    for what in ("prefill", "decode"):
+        p = prof[what]
+        if p is None:
+            log(f"profiler, {what}: no device events in the trace "
+                f"(not measured)")
+            continue
+        label = ("per decode step, 8 slots" if what == "decode" else
+                 "B=8 prefill at rung 256")
+        log(f"profiler, {label}: {p['device_ops']} device ops "
+            f"({p['kernels']} kernels), device busy {p['busy_ms']} ms")
+    for what, wall in (("decode", run["decode_ms_per_step"]),
+                       ("prefill", rungs[256])):
+        if prof[what] is not None:
+            busy = prof[what]["busy_ms"]
+            log(f"{what}: device busy {busy} ms of {wall} ms unprofiled, "
+                f"idle share {1 - busy / wall}")
+    log(f"card vs CPU plain path: {parity}")
+
+    headline = {"rmsnorm": 2, "decode_attention": 0, "flash_attention": 5}
+    kernels = []
+    for kname, rows in cases.items():
+        r = rows[headline[kname]]
+        route, source = SOURCES[kname]
+        kernels.append(dict(
+            name=kname, route=route, source=source, replaces=REPLACES[kname],
+            launches=run["launches"][kname], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            eager_ms=r["eager_ms"], case=r["case"],
+            cases=[dict(case=c["case"], max_abs_err=c["max_abs_err"],
+                        ms=c["ms"], eager_ms=c["eager_ms"],
+                        plain_ms=c["plain_ms"],
+                        bound_ms=c["bound"][0], bound_by=c["bound"][1],
+                        library_ms=c["library_ms"]) for c in rows]))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

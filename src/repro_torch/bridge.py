@@ -1,0 +1,37 @@
+"""Parameters from the JAX package into the port, bit for bit.
+
+Input: the reference's parameter tree as a nested dict of numpy arrays (what
+``jax.tree.map(np.asarray, params)`` gives). Output: the same tree of torch
+tensors on ``device``. Layouts are kept as they are: weights ``[in, out]``
+(the port computes ``x @ w``), layer leaves stacked on a leading ``[L]``
+axis. bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) travel as
+their raw 16-bit patterns through a ``uint16`` view and come out with
+``.view(torch.bfloat16)``, so no value is rounded on the way."""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a: np.ndarray, device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    a = np.array(a, order="C")          # a writable copy for torch to own
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree: Any, device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> Any:
+    """Nested dict of numpy arrays -> the same nested dict of tensors."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return tensor_from_numpy(np.asarray(tree), device, dtype)
+

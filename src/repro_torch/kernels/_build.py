@@ -1,0 +1,116 @@
+"""Build the port's CUDA sources into one shared library, bound with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C function. At first use every
+source compiles with its own ``nvcc`` (all started at once) into an object
+file, and the objects link into ``build/kernels/repro_torch_kernels-<hash>
+.so`` under the repository root. The hash covers the sources and the flags,
+so an edited source builds anew and an unchanged tree loads what is built.
+The Triton kernels compile in Triton's own cache, which
+``triton_cache_dir`` points under ``build/`` as well."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = BUILD_ROOT / "kernels"
+SOURCES = ("decode_attention", "flash_attention")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# nvcc's register / shared-memory report (-Xptxas -v) per compiled source
+ptxas_log: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every source (one nvcc each, concurrently) and link them
+    into the shared library, unless it is built already."""
+    with _lock:
+        out = library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        tag = f"{out.stem}.{os.getpid()}"
+        jobs = []
+        for name in SOURCES:
+            obj = BUILD_DIR / f"{name}-{tag}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(CSRC / f"{name}.cu"),
+                   "-o", str(obj)]
+            jobs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, _, proc in jobs:
+            log, _ = proc.communicate()
+            ptxas_log[name] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp),
+             *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+        for _, obj, _ in jobs:
+            obj.unlink()
+        return out
+
+
+def load() -> ctypes.CDLL:
+    """The port's kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        path = build()
+        with _lock:
+            if _lib is None:
+                _lib = ctypes.CDLL(str(path))
+    return _lib
+
+
+def triton_cache_dir() -> str:
+    """Keep Triton's compiled kernels beside the CUDA ones (unless the caller
+    chose a cache directory already)."""
+    path = os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT / "triton"))
+    Path(path).mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

@@ -1,0 +1,1 @@
+"""Model definitions: the dense decoder-only transformer."""

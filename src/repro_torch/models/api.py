@@ -1,0 +1,55 @@
+"""Uniform model API: every architecture builds to a :class:`Model` with the
+same entry points, so the serving engine treats them alike (Clipper's model
+container narrow waist, paper §4.4, at the model-definition level).
+
+Entry points run on the card unless the caller asks for the CPU: ``device``
+defaults to ``"cuda"`` and raises when no card is present; it never falls
+back to the CPU."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    dtype: torch.dtype
+    init: Callable[..., Any]          # torch.Generator -> params
+    prefill: Callable[..., Any]       # (params, batch, max_len)
+    #                                   -> (logits, cache)
+    decode_step: Callable[..., Any]   # (params, cache, tokens, lengths)
+    #                                   -> (logits, cache)
+    init_cache: Callable[..., Any]    # (batch, max_len) -> cache
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is False; pass "
+                "device='cpu' to run the plain PyTorch path")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def build_model(cfg: ModelConfig, *, device="cuda",
+                dtype: torch.dtype = torch.bfloat16, **opts) -> Model:
+    """Dispatch on family. Only the dense decoder-only family is ported."""
+    from repro_torch.models import transformer
+
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        return transformer.build(cfg, device=dev, dtype=dtype, **opts)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to repro_torch yet")

@@ -1,0 +1,217 @@
+"""Shared model substrate for the dense path: parameter specs and seeded
+init, norms, RoPE, attention, projections, embedding and head.
+
+Port of the dense-path parts of ``repro.models.common``. Tensors keep the
+JAX package's layouts (activations ``[B, S, H, D]``, weights ``[in, out]``,
+layers stacked on a leading ``[L]`` axis) and round to the working dtype at
+the same points, so the same weights give the same tokens. The three kernel
+functions route to ``repro_torch.kernels``: on CPU tensors the plain
+versions run, on CUDA tensors the Hopper kernels.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.ops import decode_attention_op
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+class Spec(NamedTuple):
+    """Declarative parameter: shape and init kind."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"      # normal | zeros | ones
+    fan_in: Optional[int] = None
+
+
+def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype):
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                          else spec.shape[-1])
+    scale = 1.0 / math.sqrt(max(1, fan))
+    x = torch.randn(spec.shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def init_tree(gen: torch.Generator, specs, device, dtype):
+    """Instantiate a nested dict of Specs, drawing from ``gen`` in sorted key
+    order (the order ``jax.tree.flatten`` visits the reference's tree)."""
+    if isinstance(specs, Spec):
+        return _init_leaf(gen, specs, device, dtype)
+    return {k: init_tree(gen, specs[k], device, dtype) for k in sorted(specs)}
+
+
+def stacked(specs, num: int):
+    """Prepend a layer dimension to every Spec in the tree."""
+    if isinstance(specs, Spec):
+        return Spec((num,) + specs.shape, specs.init, specs.fan_in)
+    return {k: stacked(v, num) for k, v in specs.items()}
+
+
+def attn_specs(d_model: int, nq: int, nkv: int, hd: int,
+               bias: bool) -> Dict[str, Spec]:
+    s = {
+        "wq": Spec((d_model, nq * hd), fan_in=d_model),
+        "wk": Spec((d_model, nkv * hd), fan_in=d_model),
+        "wv": Spec((d_model, nkv * hd), fan_in=d_model),
+        "wo": Spec((nq * hd, d_model), fan_in=nq * hd),
+    }
+    if bias:
+        s["bq"] = Spec((nq * hd,), "zeros")
+        s["bk"] = Spec((nkv * hd,), "zeros")
+        s["bv"] = Spec((nkv * hd,), "zeros")
+    return s
+
+
+def glu_specs(d_model: int, d_ff: int) -> Dict[str, Spec]:
+    return {
+        "wi": Spec((d_model, d_ff), fan_in=d_model),
+        "wg": Spec((d_model, d_ff), fan_in=d_model),
+        "wo": Spec((d_ff, d_model), fan_in=d_ff),
+    }
+
+
+def embed_specs(vocab: int, d_model: int) -> Dict[str, Spec]:
+    return {
+        "embedding": Spec((vocab, d_model), fan_in=1),
+        "head": Spec((d_model, vocab), fan_in=d_model),
+        "final_norm": Spec((d_model,), "ones"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# norms & rope
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    return rmsnorm_op(x, weight, eps=eps)
+
+
+def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-5):
+    """``(x + y, rmsnorm(x + y))``, the norm reading the sum before it is
+    rounded to the working dtype. The reference writes ``x = x + y`` and
+    ``rmsnorm(x)``; compiled, its residual add and the norm's upcast fuse so
+    the norm sees the unrounded sum, and this reproduces that."""
+    return rmsnorm_op(x, weight, eps=eps, residual=y)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos / sin tables of the rotary embedding for ``positions`` (any
+    shape ``[..., S]``) -> two ``[..., S, 1, head_dim // 2]`` fp32 tensors.
+    Computed once per forward and shared by every layer's q and k."""
+    half = head_dim // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(0, half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    angles = positions[..., None].float() * freqs            # [..., S, half]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotary embedding, split-half form, in fp32 then cast back (the
+    reference's ``rope(x, positions, theta)`` with its tables from
+    :func:`rope_tables`). x: [..., S, H, D]."""
+    cos, sin = tables
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_prefill(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_block: int = 512, k_block: int = 1024,
+                      scale: Optional[float] = None, q_offset=None,
+                      kv_valid=None) -> torch.Tensor:
+    """Causal / windowed GQA prefill attention; q [B,Sq,Hq,D], k/v
+    [B,Sk,Hkv,D]; ``kv_valid`` [B] masks right-pad keys, ``q_offset`` is the
+    absolute position of q row 0 (default ``Sk - Sq``)."""
+    return flash_attention_op(q, k, v, causal=causal, window=window,
+                              q_block=q_block, k_block=k_block, scale=scale,
+                              q_offset=q_offset, kv_valid=kv_valid)
+
+
+def attention_decode(q, k_cache, v_cache, lengths, *, window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against a cache. q [B,1,Hq,D]; k/v_cache
+    [B,Smax,Hkv,D]; lengths [B] valid positions (current token at
+    lengths-1); rows with ``lengths == 0`` are 0."""
+    return decode_attention_op(q, k_cache, v_cache, lengths, window=window,
+                               scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def attn_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, nq: int, nkv: int,
+             hd: int):
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.view(B, S, nq, hd), k.view(B, S, nkv, hd),
+            v.view(B, S, nkv, hd))
+
+
+def glu_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    # silu spelled out as the reference lowers it, g * (1 / (1 + exp(-g))),
+    # each op rounding to the working dtype
+    g = x @ p["wg"]
+    h = g * torch.reciprocal(1 + torch.exp(-g)) * (x @ p["wi"])
+    return h @ p["wo"]
+
+
+def embed_tokens(p: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["embedding"])
+
+
+def lm_head(p: Dict[str, torch.Tensor], x: torch.Tensor,
+            norm_eps: float) -> torch.Tensor:
+    return rmsnorm(x, p["final_norm"], norm_eps) @ p["head"]
+
+
+def last_valid_slice(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,d]; lengths: [B] -> [B,1,d], row ``lengths[b]-1`` per sample
+    (prompts are right-padded, so the last token is per-sample)."""
+    B, S, d = x.shape
+    idx = (lengths.long() - 1).clamp(0, S - 1)
+    return x[torch.arange(B, device=x.device), idx][:, None]
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def cache_update(k_cache, v_cache, k_new, v_new, lengths) -> None:
+    """Write one new K/V row per sample at its own position, in place.
+
+    k_cache/v_cache: [B,Smax,Hkv,D]; k_new/v_new: [B,1,Hkv,D]; lengths: [B]
+    (position to write). Positions clamp to ``[0, Smax-1]`` as
+    ``lax.dynamic_update_slice`` clamps them in the reference."""
+    B, Smax = k_cache.shape[:2]
+    rows = torch.arange(B, device=k_cache.device)
+    pos = lengths.long().clamp(0, Smax - 1)
+    k_cache[rows, pos] = k_new[:, 0]
+    v_cache[rows, pos] = v_new[:, 0]

@@ -1,0 +1,138 @@
+"""Decoder-only transformer, dense family.
+
+Port of the dense path of ``repro.models.transformer``. Parameters keep the
+reference's tree: ``{"embed": {...}, "layers": {...}}`` with every layer
+leaf stacked on a leading ``[L]`` axis. The reference scans over that axis;
+here a Python loop walks the layers (``torch.unbind`` gives the per-layer
+views without copies). Per-layer sliding windows are static ints.
+
+The KV cache is ``{"k", "v": [L, B, Smax, Hkv, D], "lengths": [B]}``.
+``decode_step`` writes the new K/V rows into the cache it is given, in
+place (the counterpart of the reference's donated cache), and returns it."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import Model
+from repro_torch.models.common import (
+    Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv, attn_specs,
+    cache_update, embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
+    last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked,
+)
+
+
+def _layer_specs(cfg: ModelConfig, nq: int, nkv: int,
+                 hd: int) -> Dict[str, Any]:
+    return {
+        "ln1": Spec((cfg.d_model,), "ones"),
+        "attn": attn_specs(cfg.d_model, nq, nkv, hd, cfg.qkv_bias),
+        "ln2": Spec((cfg.d_model,), "ones"),
+        "ffn": glu_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _layer_windows(cfg: ModelConfig) -> List[int]:
+    """Per-layer window sizes (0 = full attention)."""
+    w = [cfg.window] * cfg.num_layers
+    for i in cfg.global_layers:
+        w[i] = 0
+    return w
+
+
+def _unstack(tree, n: int) -> List[Dict[str, Any]]:
+    """Stacked ``[L, ...]`` leaves -> one dict of views per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    per_key = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+
+
+def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
+          q_block: int = 512, k_block: int = 1024) -> Model:
+    pd = cfg.padded(1)
+    nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
+    d, L = cfg.d_model, cfg.num_layers
+    eps = cfg.norm_eps
+    specs = {
+        "embed": embed_specs(V, d),
+        "layers": stacked(_layer_specs(cfg, nq, nkv, hd), L),
+    }
+    windows = _layer_windows(cfg)
+
+    def init(gen: torch.Generator):
+        """Seeded parameters on the model's device (``gen`` lives there)."""
+        return init_tree(gen, specs, device, dtype)
+
+    def _attn_out_ffn(x, o, lp):
+        """Residual add of the attention output, second norm, FFN."""
+        x, h2 = add_rmsnorm(x, o @ lp["attn"]["wo"], lp["ln2"], eps)
+        return x + glu_apply(lp["ffn"], h2)
+
+    # ---------------- prefill ----------------
+    def prefill(params, batch, max_len: Optional[int] = None):
+        """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
+        (right-padded prompts). Returns last-token logits [B,V] and a cache
+        padded to ``max_len`` positions; rows past a prompt's length hold
+        the padding's K/V, as in the reference."""
+        x = embed_tokens(params["embed"], batch["tokens"])
+        B, S, _ = x.shape
+        Smax = max_len or S
+        vl = batch.get("lengths")
+        ks = torch.zeros((L, B, Smax, nkv, hd), dtype=x.dtype, device=device)
+        vs = torch.zeros_like(ks)
+        tables = rope_tables(torch.arange(S, device=device)[None, :], hd,
+                             cfg.rope_theta)
+        for i, lp in enumerate(_unstack(params["layers"], L)):
+            h = rmsnorm(x, lp["ln1"], eps)
+            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k = rope(q, tables), rope(k, tables)
+            o = attention_prefill(q, k, v, causal=True, window=windows[i],
+                                  q_block=q_block, k_block=k_block,
+                                  kv_valid=vl)
+            x = _attn_out_ffn(x, o.reshape(B, S, nq * hd), lp)
+            ks[i, :, :S] = k
+            vs[i, :, :S] = v
+        x_last = (x[:, -1:].contiguous() if vl is None
+                  else last_valid_slice(x, vl))
+        logits = lm_head(params["embed"], x_last, eps)[:, 0]
+        lengths = (torch.full((B,), S, dtype=torch.int32, device=device)
+                   if vl is None else vl.to(torch.int32))
+        return logits, {"k": ks, "v": vs, "lengths": lengths}
+
+    # ---------------- decode ----------------
+    def decode_step(params, cache, tokens, lengths):
+        """tokens: [B,1]; lengths: [B] int32 current context length per
+        sample. Writes the new K/V rows into ``cache`` in place."""
+        x = embed_tokens(params["embed"], tokens)
+        B = x.shape[0]
+        tables = rope_tables(lengths[:, None], hd, cfg.rope_theta)
+        valid = lengths + 1
+        k_layers = torch.unbind(cache["k"], 0)
+        v_layers = torch.unbind(cache["v"], 0)
+        for i, lp in enumerate(_unstack(params["layers"], L)):
+            h = rmsnorm(x, lp["ln1"], eps)
+            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k = rope(q, tables), rope(k, tables)
+            cache_update(k_layers[i], v_layers[i], k, v, lengths)
+            o = attention_decode(q, k_layers[i], v_layers[i], valid,
+                                 window=windows[i])
+            x = _attn_out_ffn(x, o.reshape(B, 1, nq * hd), lp)
+        logits = lm_head(params["embed"], x, eps)[:, 0]
+        return logits, {"k": cache["k"], "v": cache["v"], "lengths": valid}
+
+    def init_cache(batch: int, max_len: int):
+        shape = (L, batch, max_len, nkv, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)}
+
+    return Model(
+        cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
+        decode_step=decode_step, init_cache=init_cache,
+        extras={"prompt_pad": True},
+    )

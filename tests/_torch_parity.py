@@ -1,0 +1,63 @@
+"""Shared builders for the JAX-vs-port parity tests (tests/test_torch_*.py).
+
+Both packages get the same weights: the JAX model is initialised from a
+PRNG key, its parameters go to numpy and through ``repro_torch.bridge`` into
+the port. Inputs are made with numpy from a seed and handed to both."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro.configs.registry import ARCHITECTURES, reduced_config
+from repro.distributed.sharding import serve_rules
+from repro.launch.mesh import compat_make_mesh
+from repro.models.api import build_model as jax_build_model
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs.registry import ARCHITECTURES as T_ARCHITECTURES
+from repro_torch.configs.registry import reduced_config as t_reduced_config
+from repro_torch.models.api import build_model as torch_build_model
+
+# the two small dense configurations: smollm reduced as the JAX tests reduce
+# it (G = 2), and a variant with G = 3 like the full-width model (15 / 5)
+G3 = dict(num_heads=6, num_kv_heads=2, d_model=96, head_dim=16, d_ff=288)
+CONFIGS = ("g2", "g3")
+
+
+def configs(name: str):
+    """(JAX config, port config) with identical fields."""
+    jc = reduced_config(ARCHITECTURES["smollm-360m"])
+    tc = t_reduced_config(T_ARCHITECTURES["smollm-360m"])
+    if name == "g3":
+        jc = dataclasses.replace(jc, **G3)
+        tc = dataclasses.replace(tc, **G3)
+    return jc, tc
+
+
+def mesh_rules():
+    return compat_make_mesh((1, 1), ("data", "model")), serve_rules(False)
+
+
+def build_pair(name: str, seed: int = 0):
+    """JAX model + params and the port's model + bridged params (CPU)."""
+    jc, tc = configs(name)
+    mesh, rules = mesh_rules()
+    jm = jax_build_model(jc, mesh, rules)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = torch_build_model(tc, device="cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jm, jp, tm, tp
+
+
+def f32(x) -> np.ndarray:
+    """JAX array or torch tensor (any float dtype) -> fp32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def t_bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)

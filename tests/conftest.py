@@ -21,3 +21,9 @@ def train_rules_1d():
 def serve_rules_1d():
     from repro.distributed.sharding import serve_rules
     return serve_rules(multi_pod=False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs CUDA kernels on an NVIDIA GPU; skipped (with "
+        "its reason) where torch.cuda.is_available() is false")

@@ -1,0 +1,185 @@
+"""The port's kernels on the card, each against its plain PyTorch version.
+
+Marked ``cuda``: where ``torch.cuda.is_available()`` is false each test
+skips with that reason. The file imports no JAX, so it runs on a machine
+that has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_cuda.py``. Tolerances: one bf16 rounding (rtol 2**-7) for
+RMSNorm; for attention, whose kernels keep p in fp32 and rescale per key
+tile, three bf16 roundings of 1 absolute (outputs are averages of N(0, 1)
+values)."""
+
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention_op
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+BF16_ULP = 2.0 ** -7
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    return torch.device("cuda")
+
+
+def _randn(shape, gen, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
+
+
+def _close(got, want, rtol, atol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("n,d", [(1, 960), (37, 960), (8, 64), (5, 3000)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_kernel(dev, n, d, residual):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn((n, d), gen, dev)
+    w = _randn((d,), gen, dev, 0.25) + 1
+    r = _randn((n, d), gen, dev) if residual else None
+    before = rmsnorm_op.launches
+    got = rmsnorm_op(x, w, residual=r)
+    torch.cuda.synchronize()
+    assert rmsnorm_op.launches == before + 1
+    want = rmsnorm_ref(x, w, residual=r)
+    if residual:
+        _close(got[0], want[0], 0, 0)         # one bf16 add: exact
+        got, want = got[1], want[1]
+    _close(got, want, BF16_ULP, 1e-5)
+
+
+DECODE_CASES = [
+    # (B, Hq, Hkv, D, Smax, lengths, window)
+    (4, 4, 2, 16, 32, [0, 1, 17, 32], 0),
+    (4, 6, 2, 16, 24, [24, 0, 5, 13], 0),          # G = 3, Smax not 2^k
+    (3, 6, 2, 32, 64, [64, 40, 0], 8),             # window > 0
+    (8, 15, 5, 64, 256, [0, 1, 37, 128, 200, 255, 256, 64], 0),
+    (8, 15, 5, 64, 256, [0, 1, 37, 128, 200, 255, 256, 64], 32),
+    (2, 16, 2, 128, 100, [100, 51], 0),            # G = 8, D = 128
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_kernel(dev, case):
+    B, Hq, Hkv, D, Smax, lengths, window = case
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = _randn((B, 1, Hq, D), gen, dev)
+    k = _randn((B, Smax, Hkv, D), gen, dev)
+    v = _randn((B, Smax, Hkv, D), gen, dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = decode_attention_op.launches
+    got = decode_attention_op(q, k, v, ln, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention_op.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, ln, window=window),
+           BF16_ULP, 3 * BF16_ULP)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].float().any()
+
+
+PREFILL_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, D, kv_valid, window, q_offset, q_block, k_block)
+    (2, 16, 16, 4, 2, 32, [16, 11], 0, None, 512, 1024),
+    (3, 24, 24, 6, 2, 64, [24, 7, 0], 0, None, 512, 1024),   # kv_valid 0
+    (2, 32, 32, 6, 2, 32, [32, 20], 8, None, 8, 16),         # window, blocks
+    (2, 8, 32, 4, 2, 64, [32, 30], 0, 24, 512, 1024),        # q_offset
+    (1, 16, 16, 4, 1, 128, None, 0, None, 4, 8),             # no kv_valid
+    (8, 256, 256, 15, 5, 64, [256, 200, 129, 256, 131, 140, 250, 180], 0,
+     None, 512, 1024),
+    (2, 100, 100, 15, 5, 64, [100, 70], 0, None, 100, 100),  # ragged tiles
+]
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_flash_attention_kernel(dev, case):
+    B, Sq, Sk, Hq, Hkv, D, kvv, window, q_off, qb, kb = case
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = _randn((B, Sq, Hq, D), gen, dev)
+    k = _randn((B, Sk, Hkv, D), gen, dev)
+    v = _randn((B, Sk, Hkv, D), gen, dev)
+    kv = None if kvv is None else torch.tensor(kvv, dtype=torch.int32,
+                                               device=dev)
+    kw = dict(causal=True, window=window, q_block=qb, k_block=kb,
+              q_offset=q_off, kv_valid=kv)
+    before = flash_attention_op.launches
+    got = flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_op.launches == before + 1
+    _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
+
+
+def test_wrappers_raise_on_unsupported_card_inputs(dev):
+    q = torch.zeros((1, 1, 4, 64), device=dev, dtype=torch.float32)
+    kv = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float32)
+    ln = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                   # fp32: no kernel, no fallback
+        decode_attention_op(q, kv, kv, ln)
+    with pytest.raises(TypeError):
+        flash_attention_op(q, kv, kv)
+    qb = torch.zeros((1, 1, 4, 48), device=dev, dtype=torch.bfloat16)
+    kb = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # D = 48: not compiled
+        flash_attention_op(qb, kb, kb)
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (6, 2)])
+def test_lmserver_on_card_runs_every_kernel(dev, heads):
+    """A small dense model served on the card: every kernel launches, every
+    request completes, and the prefill logits match the CPU plain path on
+    the same weights (two layers of bf16 rounding in other orders: within
+    5 % of the largest logit)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHITECTURES, reduced_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import LMServer
+
+    nq, nkv = heads
+    cfg = dataclasses.replace(reduced_config(ARCHITECTURES["smollm-360m"]),
+                              num_heads=nq, num_kv_heads=nkv, head_dim=32,
+                              d_model=32 * nq, d_ff=64 * nq)
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(dev)
+
+    card_params = to_card(cpu_params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 24)).astype(np.int32)
+    lens = np.array([24, 17, 5], np.int32)
+    logits = []
+    for model, params, d in ((cpu, cpu_params, "cpu"),
+                             (card, card_params, dev)):
+        out, _ = model.prefill(params, {
+            "tokens": torch.from_numpy(toks).to(d),
+            "lengths": torch.from_numpy(lens).to(d)}, max_len=64)
+        logits.append(out.float().cpu())
+    scale = logits[0].abs().max()
+    assert (logits[1] - logits[0]).abs().max() <= 0.05 * scale
+
+    ops = (rmsnorm_op, decode_attention_op, flash_attention_op)
+    before = [op.launches for op in ops]
+    srv = LMServer(card, device=dev, slots=4, max_len=64)
+    rids = [srv.submit(rng.integers(0, cfg.vocab_size, size=int(n)),
+                       max_new_tokens=6) for n in (3, 9, 17, 30, 12)]
+    srv.run(card_params)
+    assert all(len(srv.completed[r].tokens) == 6 for r in rids)
+    assert all(op.launches > b for op, b in zip(ops, before))
+    assert srv.stats["host_syncs_per_decode_step"] == 1.0
