@@ -15,13 +15,19 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    and the nearest single PyTorch call;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
-   tokens, 32 new tokens each, greedy; every kernel's launch count must rise;
+   tokens, 32 new tokens each, greedy; the launch counts are set to 0 just
+   before and read just after, and each of its kernels' counts must rise;
 4. trace a B=8 prefill and four decode steps of a server with every slot
    busy with ``torch.profiler``: device operations and device busy time per
    prefill and per decode step;
 5. compare the card's prefill logits and 8 teacher-forced decode steps with
    the same model on the CPU's plain path;
-6. print the figures, the card's name and power limit, one ``kernels`` JSON
+6. the same three phases for full-width xlstm-125m (6 mLSTM/sLSTM pairs,
+   d_model 768, 4 heads of 384, fp32 gates): 16 requests, slots=8,
+   max_len=512, prompts of 8-480 tokens, 32 new tokens, greedy, with the
+   ssd_scan and rmsnorm counts rising; prefill time per rung; the profile;
+   logits and every decode-state leaf against the CPU's plain path;
+7. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -50,20 +56,31 @@ BF16_ULP = 2.0 ** -7
 TOL = {"rmsnorm": (BF16_ULP, 1e-5),
        "decode_attention": (BF16_ULP, 3 * BF16_ULP),
        "flash_attention": (BF16_ULP, 3 * BF16_ULP)}
-# card vs CPU plain path, full model: 32 layers of bf16 rounding in other
-# orders (cuBLAS and the kernels vs CPU GEMMs and the plain versions); the
-# logits may differ by this share of their largest magnitude
-LOGIT_TOL = 0.05
+# ssd_scan: kernel and plain version sum fp32 products of up to dk (q . k,
+# q . S) or a chunk (P v, k^T v) terms in other orders, so y (bf16) to one
+# bf16 rounding plus SCAN_ATOL of its largest magnitude, the fp32 state to
+# rtol 2e-5 plus SCAN_ATOL of its largest magnitude
+SCAN_ATOL = 2e-5
+# card vs CPU plain path, full model: 32 layers (smollm) or 6 pairs (xlstm)
+# of bf16 rounding in other orders (cuBLAS and the kernels vs CPU GEMMs and
+# the plain versions); the logits, and each xlstm decode-state leaf, may
+# differ by this share of their largest magnitude: about twice the largest
+# difference seen on an H100 (smollm logits 2.2 %; xlstm logits 0.63 %,
+# state leaves 0.73 %)
+LOGIT_TOL = {"smollm-360m": 0.05, "xlstm-125m": 0.015}
+STATE_TOL = 0.015
 
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
     "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:71",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:76",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:58",
 }
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/rmsnorm.py"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
+    "ssd_scan": ("cuda", "src/repro_torch/csrc/ssd_scan.cu"),
 }
 
 
@@ -75,6 +92,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
 
@@ -83,6 +103,13 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _xlstm_state(cache):
+    """The decode-state leaves of an xlstm cache, named."""
+    names = ("mlstm_S", "mlstm_n", "slstm_c", "slstm_n", "slstm_h", "slstm_m")
+    return dict(zip(names, [cache["m"][0], cache["m"][1], *cache["s"]],
+                    strict=True))
 
 
 def cuda_ms(fn, reps=50, warmup=5):
@@ -128,9 +155,11 @@ def graph_ms(fn, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound(nbytes, flops, peak):
+def bound(nbytes, *work):
+    """Least ms for ``nbytes`` of device memory traffic and ``work``, pairs
+    (flops, peak rate of their type) whose times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = sum(flops / peak for flops, peak in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -214,7 +243,7 @@ def kernel_cases(dev):
                 lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
             out["rmsnorm"].append(dict(
                 case=case, max_abs_err=err,
-                bound=bound(nbytes, 4 * n * d, FP32_FLOPS),
+                bound=bound(nbytes, (4 * n * d, FP32_FLOPS)),
                 **timings(lambda: rmsnorm_op(x, w, residual=r),
                           lambda: rmsnorm_ref(x, w, residual=r), lib)))
 
@@ -241,7 +270,7 @@ def kernel_cases(dev):
                 & (pos[None] >= lo[:, None]))[:, None, None, :]
         out["decode_attention"].append(dict(
             case=case, max_abs_err=err,
-            bound=bound(nbytes, flops, BF16_TENSOR_FLOPS),
+            bound=bound(nbytes, (flops, BF16_TENSOR_FLOPS)),
             **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
                       lambda: decode_attention_ref(q, k, v, ln,
                                                    window=window),
@@ -274,33 +303,121 @@ def kernel_cases(dev):
                     & (pos[None, None, :] < kv[:, None, None]))[:, None]
             out["flash_attention"].append(dict(
                 case=case, max_abs_err=err,
-                bound=bound(nbytes, 4 * D * n_valid, BF16_TENSOR_FLOPS),
+                bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
                 **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
                           lambda: flash_attention_ref(q, k, v, kv_valid=kv),
                           sdpa(q, k, v, mask))))
     return out
 
 
+def scan_bound(B, S, H, dk, dv, W, state_in):
+    """Least time of one chunked scan: bytes of q, k, v, y (bf16), the
+    gates and the fp32 state (in where given, out), against the work it
+    needs per chunk: the causal half of q k^T (bf16 inputs, fp32 sums: the
+    tensor cores' rate), and in fp32 the causal half of P v and per step
+    the state read (q . S) and the state update (k^T v)."""
+    nbytes = (2 * (B * S * H * dk) + 2 * (B * S * H * dv)) * 2 \
+        + 2 * B * S * H * 4 + B * H * dk * dv * 4 * (2 if state_in else 1)
+    causal = (S // W) * W * (W + 1) // 2
+    return bound(nbytes, (2 * B * H * causal * dk, BF16_TENSOR_FLOPS),
+                 (2 * B * H * (causal * dv + 2 * S * dk * dv), FP32_FLOPS))
+
+
+def scan_cases(dev):
+    """ssd_scan against its plain version at the xlstm prefill's shapes:
+    (a) B=8 S=256 H=4 dk=dv=384 with padded gates and a zero state, (b) the
+    normalizer alone (dv=1), (c) S=512 in two chunks from a nonzero state,
+    (d) B=1 S=8, (e) the launch the mLSTM makes: (a) with v augmented by
+    the normalizer's ones column (dv=385)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.linear_core import pad_mask_gates
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    H, hd, chunk = 4, 384, 256
+    lens = {8: [8], 256: [256, 200, 129, 256, 131, 140, 250, 180],
+            512: [512, 300, 257, 480, 90, 512, 400, 333]}
+    rows = []
+    for tag, B, S, dv, state in (("a", 8, 256, hd, "zero"),
+                                 ("b", 8, 256, 1, "zero"),
+                                 ("c", 8, 512, hd, "random"),
+                                 ("d", 1, 8, hd, "zero"),
+                                 ("e", 8, 256, hd + 1, "zero")):
+        def randn(shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        # q, k scaled by hd**-0.5 and sigmoid gates, as the mLSTM makes them
+        q = randn((B, S, H, hd), hd ** -0.5).to(torch.bfloat16)
+        k = randn((B, S, H, hd), hd ** -0.5).to(torch.bfloat16)
+        v = randn((B, S, H, dv)).to(torch.bfloat16)
+        if dv == hd + 1:
+            v[..., -1] = 1
+        raw = randn((2, B, S, H))
+        vl = torch.tensor(lens[S][:B], dtype=torch.int32, device=dev)
+        lf, li = pad_mask_gates(F.logsigmoid(raw[0] + 4.0),
+                                F.logsigmoid(raw[1]), vl)
+        s0 = (torch.zeros((B, H, hd, dv), device=dev) if state == "zero"
+              else randn((B, H, hd, dv)))
+        args = (q, k, v, lf, li)
+        y, st = ssd_scan_op(*args, chunk=chunk, initial_state=s0)
+        yr, sr = ssd_scan_ref(*args, chunk=chunk, initial_state=s0)
+        case = (f"({tag}) B={B} S={S} H={H} dk={hd} dv={dv} chunk="
+                f"{min(chunk, S)} lengths={lens[S][:B]} {state} state")
+        errs = []
+        for name, got, want, rtol in (("y", y, yr, BF16_ULP),
+                                      ("state", st, sr, 2e-5)):
+            g, w = got.float(), want.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"ssd_scan {case}: non-finite {name}")
+            err = (g - w).abs()
+            atol = SCAN_ATOL * float(w.abs().max())
+            bad = err > atol + rtol * w.abs()
+            if bad.any():
+                raise AssertionError(
+                    f"ssd_scan {case}: {int(bad.sum())} {name} elements "
+                    f"beyond rtol={rtol} atol={atol}; max_abs_err="
+                    f"{float(err.max())}")
+            errs.append(float(err.max()))
+        rows.append(dict(
+            case=case, max_abs_err=errs[0], state_max_abs_err=errs[1],
+            bound=scan_bound(B, S, H, hd, dv, min(chunk, S), True),
+            **timings(lambda: ssd_scan_op(*args, chunk=chunk,
+                                          initial_state=s0),
+                      lambda: ssd_scan_ref(*args, chunk=chunk,
+                                           initial_state=s0))))
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phase 3 / 4: the serving path at full width, and parity with the CPU
+# phases 3-6: the serving paths at full width, and parity with the CPU
 # ---------------------------------------------------------------------------
 
-def serve(model, params, dev):
-    import numpy as np
-    import torch
+def kernel_ops():
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    return {"rmsnorm": rmsnorm_op, "decode_attention": decode_attention_op,
+            "flash_attention": flash_attention_op, "ssd_scan": ssd_scan_op}
+
+
+def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5):
+    """16 requests (prompts of 8..max_prompt tokens, 32 new tokens each,
+    greedy) through ``LMServer`` with 8 slots; every count of ``kernels`` is
+    set to 0 just before the run and must have risen just after."""
+    import numpy as np
+    import torch
     from repro_torch.serving.engine import LMServer
 
-    ops = {"rmsnorm": rmsnorm_op, "decode_attention": decode_attention_op,
-           "flash_attention": flash_attention_op}
+    ops = {name: kernel_ops()[name] for name in kernels}
     rng = np.random.default_rng(0)
     vocab = model.cfg.vocab_size
 
     def make_server():
-        return LMServer(model, device=dev, slots=8, max_len=256,
-                        temperature=0.0, seed=0)
+        return LMServer(model, device=dev, slots=8, max_len=max_len,
+                        slo=slo, temperature=0.0, seed=0)
 
     # warm-up: cuBLAS handles, Triton compile, allocator; not measured
     warm = make_server()
@@ -311,7 +428,7 @@ def serve(model, params, dev):
 
     srv = make_server()
     prompts = [rng.integers(0, vocab, size=int(n))
-               for n in rng.integers(8, 201, size=16)]
+               for n in rng.integers(8, max_prompt + 1, size=16)]
     rids = [srv.submit(p, max_new_tokens=32) for p in prompts]
     decode_s = []
     inner = srv._decode_once
@@ -323,15 +440,15 @@ def serve(model, params, dev):
             decode_s.append(time.perf_counter() - t0)
 
     srv._decode_once = timed_decode
-    for op in ops.values():
+    for op in kernel_ops().values():
         op.launches = 0
     t0 = time.perf_counter()
     srv.run(params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: op.launches for name, op in ops.items()}
-    for name, n in launches.items():
-        if n <= 0:
+    launches = {name: op.launches for name, op in kernel_ops().items()}
+    for name in ops:
+        if launches[name] <= 0:
             raise AssertionError(f"{name}: no kernel launch on the main path")
     done = [srv.completed[r] for r in rids]
     if len(done) != 16 or any(len(r.tokens) != 32 for r in done):
@@ -350,16 +467,16 @@ def serve(model, params, dev):
                 rung_dispatches=dict(srv.rung_dispatches))
 
 
-def prefill_rungs(model, params, dev):
+def prefill_rungs(model, params, dev, *, max_len, rungs=None):
     """Host-clock ms of one B=8 ladder-padded prefill per rung (median of 3,
-    ending in a synchronise)."""
+    ending in a synchronise); every rung of the ladder unless ``rungs``."""
     import numpy as np
     import torch
     from repro_torch.core.batching import prompt_length_ladder
 
     rng = np.random.default_rng(1)
     out = {}
-    for rung in prompt_length_ladder(256):
+    for rung in rungs or prompt_length_ladder(max_len):
         toks = torch.from_numpy(rng.integers(
             0, model.cfg.vocab_size, size=(8, rung)).astype(np.int32)).to(dev)
         lens = torch.full((8,), rung, dtype=torch.int32, device=dev)
@@ -369,7 +486,7 @@ def prefill_rungs(model, params, dev):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = model.prefill(params, batch, max_len=256)
+            logits, _ = model.prefill(params, batch, max_len=max_len)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         if not torch.isfinite(logits.float()).all():
@@ -378,7 +495,8 @@ def prefill_rungs(model, params, dev):
     return out
 
 
-def device_profile(model, params, dev, steps=4):
+def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
+                   slo=0.5):
     """A B=8 ladder-padded prefill at rung 256 and ``steps`` decode steps
     of a server with all 8 slots busy, each under ``torch.profiler``:
     device operations (kernels, copies) per prefill and per decode step, and
@@ -396,9 +514,9 @@ def device_profile(model, params, dev, steps=4):
                  0, vocab, size=(8, 256)).astype(np.int32)).to(dev),
              "lengths": torch.from_numpy(rng.integers(
                  129, 257, size=8).astype(np.int32)).to(dev)}
-    srv = LMServer(model, device=dev, slots=8, max_len=256, temperature=0.0,
-                   seed=0)
-    for n in rng.integers(8, 201, size=8):
+    srv = LMServer(model, device=dev, slots=8, max_len=max_len, slo=slo,
+                   temperature=0.0, seed=0)
+    for n in rng.integers(8, max_prompt + 1, size=8):
         srv.submit(rng.integers(0, vocab, size=int(n)),
                    max_new_tokens=steps + 2)
     for _ in range(8):                 # AIMD may admit fewer at a time
@@ -429,14 +547,16 @@ def device_profile(model, params, dev, steps=4):
                     busy_ms=busy_us / 1e3 / n)
 
     return dict(prefill=traced(lambda p: model.prefill(p, batch,
-                                                       max_len=256), 1),
+                                                       max_len=max_len), 1),
                 decode=traced(srv._decode_once, steps))
 
 
-def cpu_parity(cfg, params, dev):
+def cpu_parity(cfg, params, dev, *, state=None):
     """Prefill + 8 teacher-forced decode steps on the card and on the CPU's
-    plain path, same weights and tokens; max |logit difference| over the
-    largest |logit|."""
+    plain path, same weights and tokens (one prompt padded); max |logit
+    difference| over the largest |logit|. With ``state`` (cache -> named
+    leaves), every leaf after the prefill and after the last step too, each
+    over its own largest magnitude."""
     import numpy as np
     import torch
     from repro_torch.models.api import build_model
@@ -448,11 +568,15 @@ def cpu_parity(cfg, params, dev):
     toks = rng.integers(0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
     lens = np.array([64, 37], np.int32)
     feeds = rng.integers(0, cfg.vocab_size, size=(8, 2, 1)).astype(np.int32)
-    results = []
+    results, states = [], []
     for model, p, d in ((gpu_model, params, dev), (cpu_model, cpu_params, "cpu")):
         logits, cache = model.prefill(
             p, {"tokens": torch.from_numpy(toks).to(d),
                 "lengths": torch.from_numpy(lens).to(d)}, max_len=80)
+        # clone: on the CPU .float().cpu() of an fp32 leaf is the leaf
+        # itself, which the decode steps below update in place
+        snaps = [] if state is None else [
+            {k: t.float().cpu().clone() for k, t in state(cache).items()}]
         seq = [logits.float().cpu()]
         ln = torch.from_numpy(lens).to(d)
         for t in feeds:
@@ -460,38 +584,79 @@ def cpu_parity(cfg, params, dev):
                                               torch.from_numpy(t).to(d), ln)
             ln = ln + 1
             seq.append(logits.float().cpu())
+        if state is not None:
+            snaps.append({k: t.float().cpu().clone()
+                          for k, t in state(cache).items()})
         results.append(torch.stack(seq))
+        states.append(snaps)
     gpu, cpu = results
     if not torch.isfinite(gpu).all():
         raise AssertionError("non-finite logits on the card")
     scale = float(cpu.abs().max())
     err = (gpu - cpu).abs().amax(dim=(1, 2))
     rel = [float(e) / scale for e in err]
-    if max(rel) > LOGIT_TOL:
+    if max(rel) > LOGIT_TOL[cfg.name]:
         raise AssertionError(f"card vs CPU logits: max |diff| / max |logit| "
-                             f"= {max(rel)} > {LOGIT_TOL} ({rel})")
+                             f"= {max(rel)} > {LOGIT_TOL[cfg.name]} ({rel})")
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
-    return dict(prefill_rel_err=rel[0], decode_rel_err=rel[1:],
-                logit_scale=scale, argmax_agreement=agree)
+    out = dict(prefill_rel_err=rel[0], decode_rel_err=rel[1:],
+               logit_scale=scale, argmax_agreement=agree)
+    for when, g, c in zip(("prefill", "decode"), *states):
+        for name in c:
+            if not torch.isfinite(g[name]).all():
+                raise AssertionError(f"non-finite {name} on the card")
+            e = float((g[name] - c[name]).abs().max()
+                      / c[name].abs().max().clamp_min(1e-30))
+            if e > STATE_TOL:
+                raise AssertionError(
+                    f"card vs CPU state {name} after {when}: max |diff| / "
+                    f"max |leaf| = {e} > {STATE_TOL}")
+            out[f"{name}_{when}_rel_err"] = e
+    return out
 
 
-def main() -> int:
+def report_path(label, run, rungs, prof, parity, per_prefill, per_step):
+    log(f"{label} serve: {run['tokens']} tokens in {run['wall_s']:.3f} s "
+        f"({run['tokens_per_s']:.1f} tok/s), {run['decode_steps']} decode "
+        f"steps at {run['decode_ms_per_step']:.3f} ms/step; "
+        f"{run['prefill_dispatches']} prefill dispatches, per rung "
+        f"{run['rung_dispatches']}")
+    launches = run["launches"]
+    steps, prefills = run["decode_steps"], run["prefill_dispatches"]
+    log(f"{label} launches on its main path: {launches}; per decode step: "
+        + ", ".join(f"{k} {launches[k] / steps}" for k in per_step)
+        + "; per prefill: "
+        + ", ".join(f"{k} {launches[k] / prefills}" for k in per_prefill)
+        + f"; per decode step or prefill: rmsnorm "
+        f"{launches['rmsnorm'] / (steps + prefills)}")
+    log(f"{label} prefill ms per rung (B=8): "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rungs.items()))
+    for what in ("prefill", "decode"):
+        p = prof[what]
+        if p is None:
+            log(f"{label} profiler, {what}: no device events in the trace "
+                f"(not measured)")
+            continue
+        where = ("per decode step, 8 slots" if what == "decode" else
+                 "B=8 prefill at rung 256")
+        log(f"{label} profiler, {where}: {p['device_ops']} device ops "
+            f"({p['kernels']} kernels), device busy {p['busy_ms']} ms")
+    for what, wall in (("decode", run["decode_ms_per_step"]),
+                       ("prefill", rungs[256])):
+        if prof[what] is not None:
+            busy = prof[what]["busy_ms"]
+            log(f"{label} {what}: device busy {busy} ms of {wall} ms "
+                f"unprofiled, idle share {1 - busy / wall}")
+    log(f"{label} card vs CPU plain path: {parity}")
+
+
+def phases(dev):
+    """Every phase on ``dev``; returns the ``kernels`` list. Any failed check
+    raises."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 2
     from repro_torch.configs.registry import ARCHITECTURES
     from repro_torch.kernels import _build
     from repro_torch.models.api import build_model
-
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     _build.build()
@@ -503,72 +668,95 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cases = kernel_cases(dev)
+    cases["ssd_scan"] = scan_cases(dev)
     log(f"kernels vs plain: {time.perf_counter() - t0:.1f} s")
     for kname, rows in cases.items():
         for r in rows:
-            log(f"  {kname} {r['case']}: max_abs_err={r['max_abs_err']} "
-                f"ms={r['ms']} eager_ms={r['eager_ms']} "
+            extra = (f" state_max_abs_err={r['state_max_abs_err']}"
+                     if "state_max_abs_err" in r else "")
+            log(f"  {kname} {r['case']}: max_abs_err={r['max_abs_err']}"
+                f"{extra} ms={r['ms']} eager_ms={r['eager_ms']} "
                 f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
                 f"bound_ms={r['bound'][0]} ({r['bound'][1]})")
 
+    # the dense path: full-width smollm-360m
+    t0 = time.perf_counter()
     cfg = ARCHITECTURES["smollm-360m"]
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     log(f"model: {cfg.name} full width, {cfg.num_layers} layers, "
         f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params bf16")
-
-    run = serve(model, params, dev)
-    rungs = prefill_rungs(model, params, dev)
-    prof = device_profile(model, params, dev)
+    dense_kernels = ("rmsnorm", "decode_attention", "flash_attention")
+    run = serve(model, params, dev, kernels=dense_kernels, max_len=256,
+                max_prompt=200)
+    rungs = prefill_rungs(model, params, dev, max_len=256)
+    prof = device_profile(model, params, dev, max_len=256, max_prompt=200)
     parity = cpu_parity(cfg, params, dev)
-    log(f"serve: {run['tokens']} tokens in {run['wall_s']:.3f} s "
-        f"({run['tokens_per_s']:.1f} tok/s), {run['decode_steps']} decode "
-        f"steps at {run['decode_ms_per_step']:.3f} ms/step; "
-        f"{run['prefill_dispatches']} prefill dispatches, per rung "
-        f"{run['rung_dispatches']}")
-    launches = run["launches"]
-    steps, prefills = run["decode_steps"], run["prefill_dispatches"]
-    log(f"launches on the main path: {launches}; per decode step: "
-        f"decode_attention {launches['decode_attention'] / steps}; per "
-        f"prefill: flash_attention {launches['flash_attention'] / prefills}; "
-        f"per decode step or prefill: rmsnorm "
-        f"{launches['rmsnorm'] / (steps + prefills)}")
-    log("prefill ms per rung (B=8): "
-        + ", ".join(f"{k}: {v:.3f}" for k, v in rungs.items()))
-    for what in ("prefill", "decode"):
-        p = prof[what]
-        if p is None:
-            log(f"profiler, {what}: no device events in the trace "
-                f"(not measured)")
-            continue
-        label = ("per decode step, 8 slots" if what == "decode" else
-                 "B=8 prefill at rung 256")
-        log(f"profiler, {label}: {p['device_ops']} device ops "
-            f"({p['kernels']} kernels), device busy {p['busy_ms']} ms")
-    for what, wall in (("decode", run["decode_ms_per_step"]),
-                       ("prefill", rungs[256])):
-        if prof[what] is not None:
-            busy = prof[what]["busy_ms"]
-            log(f"{what}: device busy {busy} ms of {wall} ms unprofiled, "
-                f"idle share {1 - busy / wall}")
-    log(f"card vs CPU plain path: {parity}")
+    report_path(cfg.name, run, rungs, prof, parity,
+                per_prefill=("flash_attention",),
+                per_step=("decode_attention",))
+    log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
+    del model, params
 
-    headline = {"rmsnorm": 2, "decode_attention": 0, "flash_attention": 5}
+    # the ssm path: full-width xlstm-125m; prefill runs an eager sLSTM time
+    # loop (seconds at rung 512), so the prefill budget of AIMD admission
+    # (slo * 0.5) is set above it
+    t0 = time.perf_counter()
+    xcfg = ARCHITECTURES["xlstm-125m"]
+    xmodel = build_model(xcfg, device=dev)
+    xparams = xmodel.init(torch.Generator(device=dev).manual_seed(0))
+    log(f"model: {xcfg.name} full width, {xcfg.num_layers} layers "
+        f"({xcfg.num_layers // 2} mLSTM/sLSTM pairs), "
+        f"{sum(t.numel() for t in _leaves(xparams)) / 1e6:.1f} M params "
+        f"(bf16, fp32 gates)")
+    xrun = serve(xmodel, xparams, dev, kernels=("rmsnorm", "ssd_scan"),
+                 max_len=512, max_prompt=480, slo=60.0)
+    xrungs = prefill_rungs(xmodel, xparams, dev, max_len=512,
+                           rungs=(8, 64, 256, 512))
+    xprof = device_profile(xmodel, xparams, dev, max_len=512, max_prompt=480,
+                           slo=60.0)
+    xparity = cpu_parity(xcfg, xparams, dev, state=_xlstm_state)
+    report_path(xcfg.name, xrun, xrungs, xprof, xparity,
+                per_prefill=("ssd_scan",), per_step=())
+    log(f"{xcfg.name} phases: {time.perf_counter() - t0:.1f} s")
+
+    headline = {"rmsnorm": 2, "decode_attention": 0, "flash_attention": 5,
+                "ssd_scan": 4}
     kernels = []
     for kname, rows in cases.items():
         r = rows[headline[kname]]
         route, source = SOURCES[kname]
+        by_path = {cfg.name: run["launches"][kname],
+                   xcfg.name: xrun["launches"][kname]}
         kernels.append(dict(
             name=kname, route=route, source=source, replaces=REPLACES[kname],
-            launches=run["launches"][kname], max_abs_err=r["max_abs_err"],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             eager_ms=r["eager_ms"], case=r["case"],
             cases=[dict(case=c["case"], max_abs_err=c["max_abs_err"],
+                        **{k: c[k] for k in ("state_max_abs_err",) if k in c},
                         ms=c["ms"], eager_ms=c["eager_ms"],
                         plain_ms=c["plain_ms"],
                         bound_ms=c["bound"][0], bound_by=c["bound"][1],
                         library_ms=c["library_ms"]) for c in rows]))
+    return kernels
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels = phases(torch.device("cuda"))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

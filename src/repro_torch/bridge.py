@@ -6,7 +6,11 @@ tensors on ``device``. Layouts are kept as they are: weights ``[in, out]``
 (the port computes ``x @ w``), layer leaves stacked on a leading ``[L]``
 axis. bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) travel as
 their raw 16-bit patterns through a ``uint16`` view and come out with
-``.view(torch.bfloat16)``, so no value is rounded on the way."""
+``.view(torch.bfloat16)``, so no value is rounded on the way.
+
+Like every entry point of the port, the bridge puts its tensors on the card
+unless the caller asks for the CPU: ``device`` defaults to ``"cuda"``,
+raises when no card is present, and never falls back."""
 
 from __future__ import annotations
 
@@ -15,9 +19,12 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.api import resolve_device
 
-def tensor_from_numpy(a: np.ndarray, device="cpu",
+
+def tensor_from_numpy(a: np.ndarray, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    dev = resolve_device(device)
     a = np.array(a, order="C")          # a writable copy for torch to own
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -25,12 +32,13 @@ def tensor_from_numpy(a: np.ndarray, device="cpu",
         t = torch.from_numpy(a)
     if dtype is not None:
         t = t.to(dtype)
-    return t.to(device)
+    return t.to(dev)
 
 
-def params_from_numpy(tree: Any, device="cpu",
+def params_from_numpy(tree: Any, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dict of numpy arrays -> the same nested dict of tensors."""
+    resolve_device(device)
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree), device, dtype)

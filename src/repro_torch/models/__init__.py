@@ -1,1 +1,1 @@
-"""Model definitions: the dense decoder-only transformer."""
+"""Model definitions: the dense decoder-only transformer and xLSTM."""

@@ -1,7 +1,7 @@
-"""Shared model substrate for the dense path: parameter specs and seeded
-init, norms, RoPE, attention, projections, embedding and head.
+"""Shared model substrate: parameter specs and seeded init, norms, RoPE,
+attention, projections, embedding and head.
 
-Port of the dense-path parts of ``repro.models.common``. Tensors keep the
+Port of the serving parts of ``repro.models.common``. Tensors keep the
 JAX package's layouts (activations ``[B, S, H, D]``, weights ``[in, out]``,
 layers stacked on a leading ``[L]`` axis) and round to the working dtype at
 the same points, so the same weights give the same tokens. The three kernel
@@ -12,7 +12,7 @@ versions run, on CUDA tensors the Hopper kernels.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,14 +27,17 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 # ---------------------------------------------------------------------------
 
 class Spec(NamedTuple):
-    """Declarative parameter: shape and init kind."""
+    """Declarative parameter: shape, init kind and dtype (``None``: the
+    model's working dtype)."""
 
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
     fan_in: Optional[int] = None
+    dtype: Optional[torch.dtype] = None
 
 
 def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype):
+    dtype = spec.dtype or dtype
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
@@ -55,10 +58,19 @@ def init_tree(gen: torch.Generator, specs, device, dtype):
     return {k: init_tree(gen, specs[k], device, dtype) for k in sorted(specs)}
 
 
+def unstack(tree, n: int) -> List[Dict[str, Any]]:
+    """Stacked ``[L, ...]`` leaves -> one dict of views per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    per_key = {k: unstack(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+
+
 def stacked(specs, num: int):
     """Prepend a layer dimension to every Spec in the tree."""
     if isinstance(specs, Spec):
-        return Spec((num,) + specs.shape, specs.init, specs.fan_in)
+        return Spec((num,) + specs.shape, specs.init, specs.fan_in,
+                    specs.dtype)
     return {k: stacked(v, num) for k, v in specs.items()}
 
 

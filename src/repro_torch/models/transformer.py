@@ -21,7 +21,7 @@ from repro_torch.models.api import Model
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv, attn_specs,
     cache_update, embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
-    last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked,
+    last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked, unstack,
 )
 
 
@@ -41,14 +41,6 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
     for i in cfg.global_layers:
         w[i] = 0
     return w
-
-
-def _unstack(tree, n: int) -> List[Dict[str, Any]]:
-    """Stacked ``[L, ...]`` leaves -> one dict of views per layer."""
-    if isinstance(tree, torch.Tensor):
-        return list(torch.unbind(tree, 0))
-    per_key = {k: _unstack(v, n) for k, v in tree.items()}
-    return [{k: per_key[k][i] for k in per_key} for i in range(n)]
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
@@ -86,7 +78,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         vs = torch.zeros_like(ks)
         tables = rope_tables(torch.arange(S, device=device)[None, :], hd,
                              cfg.rope_theta)
-        for i, lp in enumerate(_unstack(params["layers"], L)):
+        for i, lp in enumerate(unstack(params["layers"], L)):
             h = rmsnorm(x, lp["ln1"], eps)
             q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
             q, k = rope(q, tables), rope(k, tables)
@@ -113,7 +105,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         valid = lengths + 1
         k_layers = torch.unbind(cache["k"], 0)
         v_layers = torch.unbind(cache["v"], 0)
-        for i, lp in enumerate(_unstack(params["layers"], L)):
+        for i, lp in enumerate(unstack(params["layers"], L)):
             h = rmsnorm(x, lp["ln1"], eps)
             q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
             q, k = rope(q, tables), rope(k, tables)

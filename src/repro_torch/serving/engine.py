@@ -7,9 +7,10 @@ admitted prompts are padded up a geometric *length ladder*
 decode *slots*; every engine step advances all slots by one token
 (continuous batching).
 
-Device-resident hot path: the slot state (KV cache, lengths, current tokens,
-active / generated / max-new counters) is allocated once at construction and
-updated in place on the device. That is this engine's counterpart of the
+Device-resident hot path: the slot state (the model's cache, a KV cache or
+a fixed-size recurrent state, lengths, current tokens, active / generated /
+max-new counters) is allocated once at construction and updated in place on
+the device; a model's ``decode_step`` writes the cache it is given. That is this engine's counterpart of the
 reference's jit buffer donation: decode never reallocates the cache, and
 admission writes a whole prefilled batch into it with one indexed copy per
 leaf. The fused decode step folds sampling, per-slot length advance,
@@ -96,17 +97,23 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
     return fused
 
 
-def batched_scatter(cache: Dict[str, torch.Tensor],
-                    pcache: Dict[str, torch.Tensor], dst: torch.Tensor,
+def batched_scatter(cache: Any, pcache: Any, dst: torch.Tensor,
                     src: torch.Tensor) -> None:
     """Copy prefilled rows ``src`` of ``pcache`` into slots ``dst`` of the
-    slot cache, in place, one indexed copy per leaf. Leaves are [B]
-    (lengths) or layer-stacked [L, B, ...] (prefill pads K/V to the slot
+    slot cache, in place, one indexed copy per leaf. Walks the cache tree
+    (dicts and tuples) as the reference's ``jax.tree.map`` does. Leaves are
+    [B] (lengths) or layer-stacked [L, B, ...] (prefill pads K/V to the slot
     cache's ``max_len``)."""
-    for name, dv in cache.items():
-        axis = 0 if dv.dim() == 1 else 1
-        dv.index_copy_(axis, dst,
-                       pcache[name].index_select(axis, src).to(dv.dtype))
+    if isinstance(cache, dict):
+        for name, leaf in cache.items():
+            batched_scatter(leaf, pcache[name], dst, src)
+    elif isinstance(cache, (tuple, list)):
+        for leaf, pleaf in zip(cache, pcache, strict=True):
+            batched_scatter(leaf, pleaf, dst, src)
+    else:
+        axis = 0 if cache.dim() == 1 else 1
+        cache.index_copy_(axis, dst,
+                          pcache.index_select(axis, src).to(cache.dtype))
 
 
 def _admit_state(lengths, cur, active, gen, max_new, dst, src, vlens, firsts,

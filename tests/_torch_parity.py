@@ -25,10 +25,16 @@ from repro_torch.models.api import build_model as torch_build_model
 # it (G = 2), and a variant with G = 3 like the full-width model (15 / 5)
 G3 = dict(num_heads=6, num_kv_heads=2, d_model=96, head_dim=16, d_ff=288)
 CONFIGS = ("g2", "g3")
+# reduced xlstm-125m (1 pair, d_model 64, 4 heads, hd 32), built with
+# chunk 8 (prompts span several chunks) and with the default chunk 256
+XLSTM_CONFIGS = ("x8", "x256")
 
 
 def configs(name: str):
     """(JAX config, port config) with identical fields."""
+    if name in XLSTM_CONFIGS:
+        return (reduced_config(ARCHITECTURES["xlstm-125m"]),
+                t_reduced_config(T_ARCHITECTURES["xlstm-125m"]))
     jc = reduced_config(ARCHITECTURES["smollm-360m"])
     tc = t_reduced_config(T_ARCHITECTURES["smollm-360m"])
     if name == "g3":
@@ -44,11 +50,12 @@ def mesh_rules():
 def build_pair(name: str, seed: int = 0):
     """JAX model + params and the port's model + bridged params (CPU)."""
     jc, tc = configs(name)
+    opts = {"chunk": int(name[1:])} if name in XLSTM_CONFIGS else {}
     mesh, rules = mesh_rules()
-    jm = jax_build_model(jc, mesh, rules)
+    jm = jax_build_model(jc, mesh, rules, **opts)
     jp = jm.init(jax.random.PRNGKey(seed))
-    tm = torch_build_model(tc, device="cpu")
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tm = torch_build_model(tc, device="cpu", **opts)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 

@@ -6,7 +6,7 @@ that has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Tolerances: one bf16 rounding (rtol 2**-7) for
 RMSNorm; for attention, whose kernels keep p in fp32 and rescale per key
 tile, three bf16 roundings of 1 absolute (outputs are averages of N(0, 1)
-values)."""
+values); for the ssd_scan kernel, stated at its test."""
 
 import pytest
 import torch
@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 BF16_ULP = 2.0 ** -7
 
@@ -119,6 +121,51 @@ def test_flash_attention_kernel(dev, case):
     _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
 
 
+SCAN_CASES = [
+    # (B, S, H, dk, dv, chunk, initial state)
+    (2, 16, 3, 16, 8, 8, True),          # two chunks
+    (1, 8, 2, 32, 1, 256, False),        # dv = 1 (the normalizer), S < chunk
+    (2, 64, 2, 32, 40, 32, True),        # a ragged state-column tile
+    (3, 40, 2, 20, 33, 40, True),        # W not a multiple of 32, dk % 8 = 4
+    (8, 256, 4, 384, 384, 256, False),   # full width, the memory alone
+    (8, 256, 4, 384, 385, 256, False),   # the mLSTM's launch: v ‖ ones
+    (2, 512, 4, 384, 1, 256, True),      # two full-width chunks, dv = 1
+]
+
+
+def _scan_inputs(B, S, H, dk, dv, state, gen, dev):
+    """q, k scaled by dk**-0.5 as the mLSTM scales them, sigmoid gates as
+    it makes them, with the second half of sample 0 right-padded."""
+    q = _randn((B, S, H, dk), gen, dev, dk ** -0.5)
+    k = _randn((B, S, H, dk), gen, dev, dk ** -0.5)
+    v = _randn((B, S, H, dv), gen, dev)
+    raw = torch.randn((2, B, S, H), generator=gen, device=dev)
+    log_f = torch.nn.functional.logsigmoid(raw[0] + 4.0)
+    log_i = torch.nn.functional.logsigmoid(raw[1])
+    log_f[0, S // 2:], log_i[0, S // 2:] = 0.0, -1e30
+    s0 = (torch.randn((B, H, dk, dv), generator=gen, device=dev)
+          if state else None)
+    return q, k, v, log_f.contiguous(), log_i.contiguous(), s0
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_ssd_scan_kernel(dev, case):
+    """Kernel against the plain version on the same card inputs: both sum
+    fp32 products of up to dk (q . k, q . S) or a chunk (P v, k^T v) terms
+    in other orders, so y to one bf16 rounding plus 2e-5 of its largest
+    magnitude, the fp32 state to rtol 2e-5 plus 2e-5 of its largest."""
+    B, S, H, dk, dv, chunk, state = case
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, lf, li, s0 = _scan_inputs(B, S, H, dk, dv, state, gen, dev)
+    before = ssd_scan_op.launches
+    y, st = ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan_op.launches == before + 1
+    yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    _close(y, yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+    _close(st, sr, 2e-5, 2e-5 * float(sr.abs().max()))
+
+
 def test_wrappers_raise_on_unsupported_card_inputs(dev):
     q = torch.zeros((1, 1, 4, 64), device=dev, dtype=torch.float32)
     kv = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float32)
@@ -131,6 +178,17 @@ def test_wrappers_raise_on_unsupported_card_inputs(dev):
     kb = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                  # D = 48: not compiled
         flash_attention_op(qb, kb, kb)
+    z = torch.zeros((1, 8, 2, 16), device=dev, dtype=torch.bfloat16)
+    g = torch.zeros((1, 8, 2), device=dev)
+    with pytest.raises(TypeError):                   # fp32 q, k, v
+        ssd_scan_op(z.float(), z.float(), z.float(), g, g)
+    with pytest.raises(TypeError):                   # bf16 gates
+        ssd_scan_op(z, z, z, g.bfloat16(), g.bfloat16())
+    zk = torch.zeros((1, 8, 2, 520), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                  # dk > 512
+        ssd_scan_op(zk, zk, z, g, g)
+    with pytest.raises(ValueError):                  # S % chunk
+        ssd_scan_op(z, z, z, g, g, chunk=3)
 
 
 @pytest.mark.parametrize("heads", [(4, 2), (6, 2)])
@@ -175,6 +233,55 @@ def test_lmserver_on_card_runs_every_kernel(dev, heads):
     assert (logits[1] - logits[0]).abs().max() <= 0.05 * scale
 
     ops = (rmsnorm_op, decode_attention_op, flash_attention_op)
+    before = [op.launches for op in ops]
+    srv = LMServer(card, device=dev, slots=4, max_len=64)
+    rids = [srv.submit(rng.integers(0, cfg.vocab_size, size=int(n)),
+                       max_new_tokens=6) for n in (3, 9, 17, 30, 12)]
+    srv.run(card_params)
+    assert all(len(srv.completed[r].tokens) == 6 for r in rids)
+    assert all(op.launches > b for op, b in zip(ops, before))
+    assert srv.stats["host_syncs_per_decode_step"] == 1.0
+
+
+def test_xlstm_lmserver_on_card(dev):
+    """Reduced xlstm served on the card: ssd_scan and rmsnorm launch, every
+    request completes, and prefill logits and every state leaf match the
+    CPU plain path on the same weights (bf16 rounding in other orders
+    through one pair: logits within 5 % of the largest, states within 1 %
+    of the leaf's largest magnitude)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHITECTURES, reduced_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import LMServer
+
+    cfg = reduced_config(ARCHITECTURES["xlstm-125m"])
+    cpu = build_model(cfg, device="cpu", chunk=8)
+    cpu_params = cpu.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev, chunk=8)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(dev)
+
+    card_params = to_card(cpu_params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 24)).astype(np.int32)
+    lens = np.array([24, 17, 5], np.int32)
+    outs = []
+    for model, params, d in ((cpu, cpu_params, "cpu"),
+                             (card, card_params, dev)):
+        logits, cache = model.prefill(params, {
+            "tokens": torch.from_numpy(toks).to(d),
+            "lengths": torch.from_numpy(lens).to(d)})
+        leaves = [cache["m"][0], cache["m"][1], *cache["s"]]
+        outs.append([logits.float().cpu()] + [t.cpu() for t in leaves])
+    for i, (a, b) in enumerate(zip(*outs)):
+        tol = 0.05 if i == 0 else 0.01
+        assert (b - a).abs().max() <= tol * a.abs().max(), i
+
+    ops = (rmsnorm_op, ssd_scan_op)
     before = [op.launches for op in ops]
     srv = LMServer(card, device=dev, slots=4, max_len=64)
     rids = [srv.submit(rng.integers(0, cfg.vocab_size, size=int(n)),

@@ -19,10 +19,14 @@ import torch
 from repro.kernels.decode_attention.ops import decode_attention_op as j_decode_op
 from repro.kernels.flash_attention.ops import flash_attention_op as j_flash_op
 from repro.kernels.rmsnorm.ops import rmsnorm_op as j_rmsnorm_op
+from repro.kernels.ssd_scan.ops import ssd_scan_op as j_ssd_scan_op
 from repro.models import common as JC
+from repro.models import linear_core as JLC
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.models import linear_core as TLC
 
 from _torch_parity import f32, t_bf16
 
@@ -184,3 +188,140 @@ def test_wrappers_refuse_other_devices_and_bad_layouts():
         decode_attention_op(torch.zeros((1, 1, 2, 8)), torch.zeros(
             (1, 4, 1, 8)), torch.zeros((1, 4, 1, 8)), torch.ones((1,),
                                                                  dtype=torch.long))
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (chunked linear attention)
+# ---------------------------------------------------------------------------
+#
+# Tolerances: the plain version and the references sum the same fp32
+# products in other orders, so fp32 outputs and every state agree to rtol
+# 2e-5 plus 2e-6 of the output's largest magnitude (about 16 fp32 ulps of
+# it: sums of up to a chunk of terms cancel near zero); bf16 outputs
+# additionally to one bf16 rounding (rtol 2**-7), where those fp32 sums
+# straddle a rounding boundary.
+
+def _scan_inputs(rng, B, S, H, dk, dv, dtype, state=False):
+    """The same q, k, v (``dtype``), fp32 gates and optional fp32 initial
+    state as JAX arrays and torch tensors."""
+    def pair(a, dt):
+        j = jnp.asarray(a, dt)
+        t = (t_bf16(f32(j)) if dt == jnp.bfloat16
+             else torch.from_numpy(np.array(j)))
+        return j, t
+
+    out = [pair(rng.normal(size=(B, S, H, dk)), dtype),
+           pair(rng.normal(size=(B, S, H, dk)), dtype),
+           pair(rng.normal(size=(B, S, H, dv)), dtype),
+           pair(-np.abs(rng.normal(size=(B, S, H))), jnp.float32),
+           pair(-np.abs(rng.normal(size=(B, S, H))), jnp.float32)]
+    if state:
+        out.append(pair(rng.normal(size=(B, H, dk, dv)), jnp.float32))
+    return [a for a, _ in out], [b for _, b in out]
+
+
+def _close_scan(t, j, dtype):
+    j = f32(j)
+    np.testing.assert_allclose(
+        f32(t), j, rtol=BF16_ULP if dtype == jnp.bfloat16 else 2e-5,
+        atol=2e-6 * max(float(np.abs(j).max()), 1.0))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B,H,S,dk,dv,chunk", [
+    (2, 3, 64, 16, 8, 16),      # mLSTM-like (dk == dv after aug)
+    (1, 4, 128, 16, 64, 32),    # SSD-like (small state dim, big head dim)
+    (2, 2, 32, 8, 8, 32),       # single chunk
+])
+def test_ssd_scan_plain_matches_pallas(B, H, S, dk, dv, chunk, dtype):
+    """The sweep of tests/test_kernels.py, against the Pallas kernel in
+    interpret mode (zero initial state: the kernel has none)."""
+    rng = np.random.default_rng(5)
+    (jq, jk, jv, jf, ji), (tq, tk, tv, tf, ti) = _scan_inputs(
+        rng, B, S, H, dk, dv, dtype)
+    before = ssd_scan_op.launches
+    y, st = ssd_scan_op(tq, tk, tv, tf, ti, chunk=chunk)
+    assert ssd_scan_op.launches == before      # CPU: plain version, no launch
+    assert y.dtype == tv.dtype and st.dtype == torch.float32
+    jy, jst = j_ssd_scan_op(jq, jk, jv, jf, ji, chunk=chunk, interpret=True)
+    _close_scan(y, jy, dtype)
+    _close_scan(st, jst, jnp.float32)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dv", [8, 1])
+def test_ssd_scan_plain_matches_chunked_linear_attention(dtype, dv):
+    """A nonzero initial state carried over four chunks, and dv = 1 (the
+    mLSTM normalizer), against the jnp function the JAX model calls."""
+    rng = np.random.default_rng(6)
+    B, S, H, dk, chunk = 2, 32, 3, 16, 8
+    (jq, jk, jv, jf, ji, js), (tq, tk, tv, tf, ti, ts) = _scan_inputs(
+        rng, B, S, H, dk, dv, dtype, state=True)
+    y, st = ssd_scan_op(tq, tk, tv, tf, ti, chunk=chunk, initial_state=ts)
+    jy, jst = JLC.chunked_linear_attention(jq, jk, jv, jf, ji, chunk=chunk,
+                                           initial_state=js)
+    _close_scan(y, jy, dtype)
+    _close_scan(st, jst, jnp.float32)
+    # the model's entry point routes to the same op
+    y2, st2 = TLC.chunked_linear_attention(tq, tk, tv, tf, ti, chunk=chunk,
+                                           initial_state=ts)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_ssd_scan_plain_matches_stepwise_recurrence(chunk):
+    """Chunkwise form against the one-token decode recurrence of both
+    packages (fp32), from a nonzero state; the port's step updates its state
+    in place."""
+    rng = np.random.default_rng(7)
+    B, S, H, dk, dv = 2, 16, 3, 4, 5
+    (jq, jk, jv, jf, ji, js), (tq, tk, tv, tf, ti, ts) = _scan_inputs(
+        rng, B, S, H, dk, dv, jnp.float32, state=True)
+    y, st = ssd_scan_op(tq, tk, tv, tf, ti, chunk=chunk,
+                        initial_state=ts)
+    state, jstate = ts.clone(), js
+    for t in range(S):
+        ys, out = TLC.linear_attention_step(state, tq[:, t], tk[:, t],
+                                            tv[:, t], tf[:, t], ti[:, t])
+        assert out is state
+        jys, jstate = JLC.linear_attention_step(jstate, jq[:, t], jk[:, t],
+                                                jv[:, t], jf[:, t], ji[:, t])
+        _close_scan(ys, jys, jnp.float32)
+        _close_scan(y[:, t], ys, jnp.float32)
+    _close_scan(state, jstate, jnp.float32)
+    _close_scan(st, state, jnp.float32)
+
+
+def test_pad_mask_gates_and_readout_match_jax():
+    rng = np.random.default_rng(8)
+    lf = -np.abs(rng.normal(size=(3, 8, 2))).astype(np.float32)
+    li = -np.abs(rng.normal(size=(3, 8, 2))).astype(np.float32)
+    vl = np.array([8, 3, 0], np.int32)
+    got = TLC.pad_mask_gates(torch.from_numpy(lf), torch.from_numpy(li),
+                             torch.from_numpy(vl))
+    want = JLC.pad_mask_gates(jnp.asarray(lf), jnp.asarray(li),
+                              jnp.asarray(vl))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert float(got[1].min()) == float(np.float32(-1e30))
+    assert np.isfinite(got[1].numpy()).all()          # -1e30, not -inf
+    jy, ty = _bf16(rng, (2, 5, 3, 9), 4.0)
+    np.testing.assert_array_equal(f32(TLC.normalized_readout(ty)),
+                                  f32(JLC.normalized_readout(jy)))
+
+
+def test_ssd_scan_op_raises_on_a_ragged_chunk():
+    """``S % min(chunk, S) != 0`` raises, as both references assert."""
+    z = torch.zeros((1, 12, 2, 4))
+    g = torch.zeros((1, 12, 2))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan_op(z, z, z, g, g, chunk=8)
+    y, st = ssd_scan_op(z, z, z, g, g, chunk=4)     # 12 = 3 chunks of 4
+    assert y.shape == (1, 12, 2, 4) and st.shape == (1, 2, 4, 4)
+    y, st = ssd_scan_op(z, z, z, g, g, chunk=256)   # min(256, 12) = 12
+    assert y.shape == (1, 12, 2, 4)
+    with pytest.raises(ValueError):                 # meta: no path
+        ssd_scan_op(*(t.to("meta") for t in (z, z, z, g, g)), chunk=4)
+    with pytest.raises(ValueError):                 # initial state shape
+        ssd_scan_op(z, z, z, g, g, chunk=4,
+                    initial_state=torch.zeros((1, 2, 4, 5)))

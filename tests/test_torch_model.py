@@ -140,3 +140,25 @@ def test_padded_prefill_matches_exact(pair):
     jl_ex, _ = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None])},
                           max_len=MAX_LEN)
     _close(tl_ex, jl_ex)
+
+
+def test_bridge_defaults_to_the_card(monkeypatch):
+    """The bridge is an entry point: without a card its default device
+    raises (no fallback); ``device="cpu"`` keeps bf16 bits and fp32
+    arrays as they are."""
+    from repro_torch.bridge import params_from_numpy, tensor_from_numpy
+
+    tree = {"w": np.asarray(jnp.asarray([[1.5, -2.25]], jnp.bfloat16)),
+            "g": {"b": np.arange(3, dtype=np.float32)}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tensor_from_numpy(tree["g"]["b"])
+    with pytest.raises(ValueError):
+        params_from_numpy(tree, device="meta")
+    out = params_from_numpy(tree, device="cpu")
+    assert out["w"].device.type == "cpu" and out["w"].dtype == torch.bfloat16
+    assert out["w"].float().tolist() == [[1.5, -2.25]]
+    assert out["g"]["b"].dtype == torch.float32
+    assert out["g"]["b"].tolist() == [0.0, 1.0, 2.0]

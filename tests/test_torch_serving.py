@@ -86,7 +86,7 @@ def _record_logits(monkeypatch, srv, engine_module, to_numpy, sync):
 
 
 @pytest.mark.parametrize("seed", [11, 12, 17])
-@pytest.mark.parametrize("name", ["g2", "g3"])
+@pytest.mark.parametrize("name", ["g2", "g3", "x8"])
 def test_greedy_streams_identical(monkeypatch, name, seed):
     """Each request's greedy stream is JAX's, token for token, up to the
     first step whose two best JAX logits lie within one bf16 ulp: there a
@@ -164,7 +164,7 @@ def test_calibrated_report_byte_identical():
                            d_model=64)
     tm = build_model(cfg, device="cpu")
     import jax
-    tp = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     tclock = TVirtualClock()
 
     def service_model(kind: str, batch: int, tokens: int) -> float:
@@ -177,6 +177,12 @@ def test_calibrated_report_byte_identical():
                     service_model=service_model, model_id=cfg.name)
     _drive(jsrv, jclock, jparams, pending, sc.max_new_tokens)
     _drive(tsrv, tclock, tp, pending, sc.max_new_tokens)
+    assert_reports_match(jsrv, tsrv)
+
+
+def assert_reports_match(jsrv, tsrv):
+    """Same stats, the same report byte for byte but the backend name
+    (``"jnp"`` there, ``"plain"`` here), the same tokens per request."""
     assert jsrv.stats == tsrv.stats
     jrep = jsrv.report()
     assert jrep["engine"]["attention_backend"] == "jnp"
@@ -196,6 +202,10 @@ def test_one_host_copy_per_decode_step(monkeypatch):
     """A decode step calls no tensor-to-host method but the one ``.cpu()``
     of the packed ``[tokens ‖ done]`` (and ``.numpy()`` on that host copy)."""
     _, _, tm, tp = build_pair("g3")
+    assert_one_host_copy_per_step(monkeypatch, tm, tp)
+
+
+def assert_one_host_copy_per_step(monkeypatch, tm, tp):
     srv = LMServer(tm, device="cpu", slots=4, max_len=MAX_LEN,
                    clock=TVirtualClock(), service_model=_service_model)
     rng = np.random.default_rng(5)
