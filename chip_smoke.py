@@ -11,8 +11,12 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    linked into one library under ``build/kernels/``) and the Triton
    RMSNorm;
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (tolerances below) and time kernel, plain version
-   and the nearest single PyTorch call;
+   serving path's shapes (tolerances below), and the attention kernels also
+   at smollm's context (prefill S=1024 and 2048, decode Smax=2048); time
+   kernel, plain version and the nearest single PyTorch call; print each
+   attention launch's geometry (M tiles, cluster size, warps) and, at the
+   headline shapes, each attention kernel's time over the library call's;
+   time decode attention at every cluster size and warp count it takes;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
    tokens, 32 new tokens each, greedy; the launch counts are set to 0 just
@@ -50,9 +54,11 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
 
 # tolerances, kernel vs plain version on the same card inputs: the kernels
-# sum in other orders (rmsnorm) and keep p in fp32 / rescale per key tile
-# (attention), so one bf16 rounding of the value for rmsnorm and three bf16
-# roundings of 1 for attention outputs (averages of N(0, 1) values)
+# sum in other orders (rmsnorm); decode attention keeps p in fp32, flash
+# attention rescales per 64-key tile and sums P V in fp32 across tiles where
+# the plain version rounds each key block's P V to bf16: one bf16 rounding
+# of the value for rmsnorm and three bf16 roundings of 1 for attention
+# outputs (averages of N(0, 1) values)
 TOL = {"rmsnorm": (BF16_ULP, 1e-5),
        "decode_attention": (BF16_ULP, 3 * BF16_ULP),
        "flash_attention": (BF16_ULP, 3 * BF16_ULP)}
@@ -82,6 +88,9 @@ SOURCES = {
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
     "ssd_scan": ("cuda", "src/repro_torch/csrc/ssd_scan.cu"),
 }
+# the case of each kernel that stands in the kernels line (its serving shape)
+HEADLINE = {"rmsnorm": 2, "decode_attention": 0, "flash_attention": 5,
+            "ssd_scan": 4}
 
 
 def log(*a):
@@ -210,8 +219,11 @@ def sdpa(q, k, v, mask):
 def kernel_cases(dev):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        block_warps, cluster_size)
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import geometry
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
@@ -248,10 +260,13 @@ def kernel_cases(dev):
                           lambda: rmsnorm_ref(x, w, residual=r), lib)))
 
     # decode: B=8 slots, 15/5 heads, D=64, Smax=256, mixed lengths incl. 0
-    # and Smax, full attention and a window
-    B, Hq, Hkv, D, Smax = 8, 15, 5, 64, 256
-    lengths = [0, 1, 37, 128, 200, 255, 256, 64]
-    for window in (0, 32):
+    # and Smax, full attention and a window; then Smax=2048 (smollm's
+    # context), lengths spread over 0-2048
+    B, Hq, Hkv, D = 8, 15, 5, 64
+    for Smax, window, lengths in (
+            (256, 0, [0, 1, 37, 128, 200, 255, 256, 64]),
+            (256, 32, [0, 1, 37, 128, 200, 255, 256, 64]),
+            (2048, 0, [0, 1, 300, 1024, 2047, 2048, 1500, 700])):
         q = randn((B, 1, Hq, D))
         k, v = randn((B, Smax, Hkv, D)), randn((B, Smax, Hkv, D))
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -268,8 +283,12 @@ def kernel_cases(dev):
         lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
         mask = ((pos[None] < ln[:, None])
                 & (pos[None] >= lo[:, None]))[:, None, None, :]
+        c = cluster_size(B, Hkv, Smax, window)
         out["decode_attention"].append(dict(
             case=case, max_abs_err=err,
+            geometry=f"cluster C={c}, grid ({c}, {Hkv}, {B}) = "
+                     f"{c * Hkv * B} blocks of "
+                     f"{block_warps(Smax, window, c)} warps",
             bound=bound(nbytes, (flops, BF16_TENSOR_FLOPS)),
             **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
                       lambda: decode_attention_ref(q, k, v, ln,
@@ -277,37 +296,91 @@ def kernel_cases(dev):
                       sdpa(q, k, v, mask))))
 
     # flash prefill: B in {1, 8}, Sq = Sk in {8, 24 (ragged, one empty
-    # prompt), 256}, kv_valid as the ladder-padded prefill passes it
-    for S in (8, 24, 256):
-        for B in (1, 8):
-            lens = {8: [8, 5, 8, 3, 7, 8, 1, 6],
-                    24: [24, 17, 3, 0, 24, 9, 20, 12],
-                    256: [256, 200, 129, 256, 131, 140, 250, 180]}[S][:B]
-            q = randn((B, S, Hq, D))
-            k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
-            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-            got = flash_attention_op(q, k, v, kv_valid=kv)
-            want = flash_attention_ref(q, k, v, kv_valid=kv)
-            case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
-            err = check("flash_attention", got, want, case)
-            # keys each row attends: causal and below kv_valid
-            n_valid = sum(min(r + 1, n) for n in lens for r in range(S)) * Hq
-            # bytes: q read and out written for every row; K and V rows
-            # below kv_valid (the last row's causal walk reaches them all);
-            # a sample with kv_valid == 0 reads only V, the mean over the key
-            # blocks the plain path visits, all S rows at S <= 512
-            kv_rows = sum(2 * n if n else S for n in lens)
-            nbytes = 2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2 + B * 4
-            pos = torch.arange(S, device=dev)
-            mask = ((pos[None, :] <= pos[:, None])[None]
-                    & (pos[None, None, :] < kv[:, None, None]))[:, None]
-            out["flash_attention"].append(dict(
-                case=case, max_abs_err=err,
-                bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
-                **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
-                          lambda: flash_attention_ref(q, k, v, kv_valid=kv),
-                          sdpa(q, k, v, mask))))
+    # prompt), 256}, kv_valid as the ladder-padded prefill passes it; then
+    # B=8 at 1024 and 2048 (smollm's context), ragged
+    flash_lens = {8: [8, 5, 8, 3, 7, 8, 1, 6],
+                  24: [24, 17, 3, 0, 24, 9, 20, 12],
+                  256: [256, 200, 129, 256, 131, 140, 250, 180],
+                  1024: [1024, 800, 517, 1024, 300, 640, 900, 1000],
+                  2048: [2048, 1600, 1030, 2048, 600, 1280, 1800, 2000]}
+    for S, B in ((8, 1), (8, 8), (24, 1), (24, 8), (256, 1), (256, 8),
+                 (1024, 8), (2048, 8)):
+        lens = flash_lens[S][:B]
+        q = randn((B, S, Hq, D))
+        k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = flash_attention_op(q, k, v, kv_valid=kv)
+        want = flash_attention_ref(q, k, v, kv_valid=kv)
+        case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
+        err = check("flash_attention", got, want, case)
+        # keys each row attends: causal and below kv_valid
+        n_valid = sum(min(r + 1, n) for n in lens for r in range(S)) * Hq
+        # bytes: q read and out written for every row; K and V rows
+        # below kv_valid (the last row's causal walk reaches them all);
+        # a sample with kv_valid == 0 reads only V, the mean over the key
+        # blocks the plain path visits, all S rows at S <= 512
+        kv_rows = sum(2 * n if n else S for n in lens)
+        nbytes = 2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2 + B * 4
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None, :] <= pos[:, None])[None]
+                & (pos[None, None, :] < kv[:, None, None]))[:, None]
+        geo = geometry(B, S, Hq, Hkv, D)
+        out["flash_attention"].append(dict(
+            case=case, max_abs_err=err,
+            geometry=f"{geo.m_tiles} M tiles of 64 (row, head) pairs, "
+                     f"grid ({geo.m_tiles}, {Hkv}, {B}) = {geo.blocks} "
+                     f"blocks, {geo.smem_bytes} B shared memory",
+            bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
+            **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
+                      lambda: flash_attention_ref(q, k, v, kv_valid=kv),
+                      sdpa(q, k, v, mask))))
     return out
+
+
+def decode_sweep(dev):
+    """decode_attention through its C entry point at every cluster size and
+    warp count it takes (not the wrapper's choice): smollm's decode shape
+    with lengths 0-256, the same with every length 0 (the launch's fixed
+    cost: no position is read) and Smax=2048 at C=8. Each launch with
+    lengths is held against the plain version. What ``cluster_size`` and
+    ``block_warps`` are chosen from; these launches bypass the wrapper and
+    its count."""
+    import torch
+    from repro_torch.kernels import softmax_scale
+    from repro_torch.kernels.decode_attention import decode_attention as bind
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    B, Hq, Hkv, D = 8, 15, 5, 64
+    rows = []
+    for Smax, lengths, geos in (
+            (256, [0, 1, 37, 128, 200, 255, 256, 64],
+             [(c, w) for c in (1, 2, 4, 8) for w in (2, 4)]),
+            (256, [0] * 8, [(c, w) for c in (1, 8) for w in (2, 4)]),
+            (2048, [0, 1, 300, 1024, 2047, 2048, 1500, 700],
+             [(8, 2), (8, 4)])):
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Smax, Hkv, D), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        want = decode_attention_ref(q.view(B, 1, Hq, D), k, v, ln)
+        out = torch.empty_like(q)
+        for c, warps in geos:
+            def call():
+                err = bind._fn()(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(),
+                    out.data_ptr(), B, Smax, Hkv, Hq // Hkv, D, 0,
+                    softmax_scale(None, D), c, warps,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"decode_attention C={c} warps="
+                                       f"{warps}: cudaError_t {err}")
+            call()
+            case = (f"Smax={Smax} lengths={min(lengths)}-{max(lengths)} "
+                    f"C={c} warps={warps}")
+            check("decode_attention", out.view(B, 1, Hq, D), want, case)
+            rows.append((case, graph_ms(call)))
+    return rows
 
 
 def scan_bound(B, S, H, dk, dv, W, state_in):
@@ -678,6 +751,16 @@ def phases(dev):
                 f"{extra} ms={r['ms']} eager_ms={r['eager_ms']} "
                 f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
                 f"bound_ms={r['bound'][0]} ({r['bound'][1]})")
+            if "geometry" in r:
+                log(f"    launch: {r['geometry']}")
+    for case, ms in decode_sweep(dev):
+        log(f"  decode_attention geometry sweep {case}: ms={ms}")
+    for kname in ("flash_attention", "decode_attention"):
+        r = cases[kname][HEADLINE[kname]]
+        ratio = (None if r["library_ms"] is None
+                 else r["ms"] / r["library_ms"])
+        log(f"{kname} at its headline shape ({r['case']}): kernel "
+            f"{r['ms']} ms / library {r['library_ms']} ms = {ratio}")
 
     # the dense path: full-width smollm-360m
     t0 = time.perf_counter()
@@ -720,11 +803,9 @@ def phases(dev):
                 per_prefill=("ssd_scan",), per_step=())
     log(f"{xcfg.name} phases: {time.perf_counter() - t0:.1f} s")
 
-    headline = {"rmsnorm": 2, "decode_attention": 0, "flash_attention": 5,
-                "ssd_scan": 4}
     kernels = []
     for kname, rows in cases.items():
-        r = rows[headline[kname]]
+        r = rows[HEADLINE[kname]]
         route, source = SOURCES[kname]
         by_path = {cfg.name: run["launches"][kname],
                    xcfg.name: xrun["launches"][kname]}
@@ -736,7 +817,8 @@ def phases(dev):
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             eager_ms=r["eager_ms"], case=r["case"],
             cases=[dict(case=c["case"], max_abs_err=c["max_abs_err"],
-                        **{k: c[k] for k in ("state_max_abs_err",) if k in c},
+                        **{k: c[k] for k in ("state_max_abs_err", "geometry")
+                           if k in c},
                         ms=c["ms"], eager_ms=c["eager_ms"],
                         plain_ms=c["plain_ms"],
                         bound_ms=c["bound"][0], bound_by=c["bound"][1],

@@ -1,8 +1,8 @@
 """Checked prefill-attention entry point (model layout ``[B, S, H, D]``).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (bf16, D in {32, 64, 128}; any Sq, Sk). ``flash_attention_op.launches``
-counts kernel launches."""
+raise (bf16, D in {32, 64, 128}, 16-byte aligned; any Sq, Sk).
+``flash_attention_op.launches`` counts kernel launches."""
 
 from __future__ import annotations
 
@@ -55,6 +55,10 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_HEAD_DIMS}; got D={D}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError("flash_attention_op: the kernel takes bf16 q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_op: the kernel reads q, k, v in "
+                         "16-byte vectors; their storage must be 16-byte "
+                         "aligned")
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention)
 

@@ -3,10 +3,13 @@
 Marked ``cuda``: where ``torch.cuda.is_available()`` is false each test
 skips with that reason. The file imports no JAX, so it runs on a machine
 that has only PyTorch: ``PYTHONPATH=src python -m pytest -q -m cuda
-tests/test_torch_cuda.py``. Tolerances: one bf16 rounding (rtol 2**-7) for
-RMSNorm; for attention, whose kernels keep p in fp32 and rescale per key
-tile, three bf16 roundings of 1 absolute (outputs are averages of N(0, 1)
-values); for the ssd_scan kernel, stated at its test."""
+--noconftest tests/test_torch_cuda.py`` (the shared ``conftest.py`` imports
+JAX). Tolerances: one bf16 rounding (rtol 2**-7) for
+RMSNorm; for attention, whose kernels rescale per key tile and sum in other
+orders (decode keeps p in fp32; flash sums P V in fp32 across key tiles
+where the plain version rounds each key block's product to bf16), three
+bf16 roundings of 1 absolute (outputs are averages of N(0, 1) values); for
+the ssd_scan kernel, stated at its test."""
 
 import pytest
 import torch
@@ -68,6 +71,14 @@ DECODE_CASES = [
     (8, 15, 5, 64, 256, [0, 1, 37, 128, 200, 255, 256, 64], 0),
     (8, 15, 5, 64, 256, [0, 1, 37, 128, 200, 255, 256, 64], 32),
     (2, 16, 2, 128, 100, [100, 51], 0),            # G = 8, D = 128
+    (8, 15, 5, 64, 256, [1] * 8, 0),               # C = 8, most blocks empty
+    # a window narrower than a block's share of Smax (256 / 8)
+    (8, 15, 5, 64, 256, [0, 5, 20, 21, 100, 255, 256, 37], 20),
+    (8, 15, 5, 64, 2048, [0, 1, 300, 1024, 2047, 2048, 1500, 700], 0),
+    (3, 6, 2, 20, 50, [50, 7, 33], 0),             # D % 8: 4-byte loads
+    (2, 8, 1, 100, 40, [40, 3], 0),                # G = 8, D = 100: 2 a lane
+    (2, 16, 2, 128, 1000, [1000, 517], 0),         # G = 8, four warps
+    (2, 6, 2, 20, 700, [700, 300], 0),             # 4-byte loads, four warps
 ]
 
 
@@ -100,6 +111,13 @@ PREFILL_CASES = [
     (8, 256, 256, 15, 5, 64, [256, 200, 129, 256, 131, 140, 250, 180], 0,
      None, 512, 1024),
     (2, 100, 100, 15, 5, 64, [100, 70], 0, None, 100, 100),  # ragged tiles
+    (2, 40, 40, 4, 4, 64, [40, 23], 0, None, 512, 1024),     # G = 1
+    (2, 50, 50, 16, 2, 64, [50, 31], 0, None, 512, 1024),    # G = 8
+    (1, 37, 37, 6, 2, 128, [30], 0, None, 512, 1024),        # Sq*G = 111
+    # q_offset > 0, window narrower than a 64-key tile; sample 1 has no
+    # key inside any row's window (the mean-of-V rows)
+    (2, 16, 200, 15, 5, 64, [200, 150], 24, 184, 512, 1024),
+    (4, 1024, 1024, 15, 5, 64, [1024, 0, 517, 1000], 0, None, 512, 1024),
 ]
 
 
@@ -119,6 +137,40 @@ def test_flash_attention_kernel(dev, case):
     torch.cuda.synchronize()
     assert flash_attention_op.launches == before + 1
     _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
+
+
+def test_decode_attention_replays_in_a_cuda_graph(dev):
+    """The cluster launch captured in a CUDA graph replays to the eager
+    output, also after the inputs change in place. Same kernel, same inputs,
+    a fixed merge order and no atomics: equal bit for bit."""
+    B, Hq, Hkv, D, Smax = 8, 15, 5, 64, 256
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _randn((B, 1, Hq, D), gen, dev)
+    k = _randn((B, Smax, Hkv, D), gen, dev)
+    v = _randn((B, Smax, Hkv, D), gen, dev)
+    ln = torch.tensor([0, 1, 37, 128, 200, 255, 256, 64], dtype=torch.int32,
+                      device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_op(q, k, v, ln)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention_op(q, k, v, ln)
+    for step in range(2):
+        if step:
+            k.mul_(0.5)
+            v.add_(1.0)
+            ln.copy_(torch.tensor([256, 3, 0, 129, 17, 250, 1, 64],
+                                  dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = decode_attention_op(q, k, v, ln)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        _close(captured, decode_attention_ref(q, k, v, ln), BF16_ULP,
+               3 * BF16_ULP)
 
 
 SCAN_CASES = [
