@@ -1,7 +1,7 @@
 // Chunked linear-attention scan (the mLSTM / mamba-SSD hot path) in the
 // model layout, with a carried initial state.
 //
-// Replaces: src/repro/kernels/ssd_scan/ssd_scan.py, function `ssd_scan`
+// Replaces: src/repro/kernels/ssd_scan/ssd_scan.py:58, function `ssd_scan`
 //   (Pallas TPU kernel, grid (B, H, n_chunks), the whole [dk, dv] fp32 state
 //   in VMEM scratch across the sequential chunk axis, starting from zero).
 //   It computes `repro.models.linear_core.chunked_linear_attention`, the
@@ -12,46 +12,55 @@
 //             + sum_{u <= w} (q[w] . k[u]) * exp(cum[w] - cum[u] + log_i[u]) * v[u]
 //     S    <- S * exp(tot) + sum_u (k[u] * exp(tot - cum[u] + log_i[u]))^T v[u]
 //   y is read from the state as it stood before the chunk, then the state
-//   is updated; y is rounded to bf16 once, at the end.
+//   is updated; k_scaled is rounded to fp32 before its product; y is rounded
+//   to bf16 once, at the end.
 //
 // What bounds it on the H100: operations. The mLSTM makes one launch per
 //   layer with v augmented by the normalizer's ones column, so at the
 //   serving path's headline shape (B=8, S=256, H=4, dk=384, dv=385, one
-//   chunk) the function needs 2*B*H*W(W+1)/2*dk = 0.81 GFLOP of q k^T
-//   (causal half; bf16 inputs, fp32 sums) and 2*B*H*(W(W+1)/2*dv +
-//   2*S*dk*dv) = 5.65 GFLOP of fp32 work (the intra-chunk product, the
-//   state read and the state update) against 63 MB of bytes (q, k, v, y in
-//   bf16, the fp32 state in and out): 0.0008 ms at 989 TFLOP/s bf16 plus
-//   0.084 ms at 67 TFLOP/s fp32, against 0.019 ms at 3.35 TB/s. The state
-//   products are fp32 in the reference, so they run as fp32 FMAs on the
-//   CUDA cores (never TF32) and are nearly all of the bound; q k^T has
-//   bf16 inputs and fp32 sums in the reference, so it runs on the tensor
-//   cores (mma.sync m16n8k16 bf16 -> fp32: exact products, fp32 sums).
+//   chunk) the function needs 0.81 GFLOP of q k^T (causal half; bf16 inputs,
+//   fp32 sums: the tensor cores, mma.sync m16n8k16, exact products) and 5.65
+//   GFLOP of fp32 work (the state read q.S, the intra-chunk P.V and the
+//   state update k_scaled^T v) against 63 MB of bytes: 0.0008 ms at 989
+//   TFLOP/s bf16 plus 0.084 ms at 67 TFLOP/s fp32, against 0.019 ms at 3.35
+//   TB/s. The fp32 products are fp32 in the reference, so they stay fp32
+//   FMAs on the CUDA cores (no TF32, no split operands) and are nearly all
+//   of the bound. Timing the previous design with one phase compiled out at
+//   a time showed that it lost most of its time staging operands, not in
+//   FMAs: without any fp32 column work (dv = 1) it still took 0.41 ms, since
+//   every 32-row tile re-staged every key tile up to the diagonal with
+//   plain synchronous copies, and each FMA came with its own shared loads
+//   and, in the state update, a multiply rebuilding k_scaled.
 //
-// Design: at dk = dv = 384 the state is 576 KB per (b, h), more than one
-//   block's shared memory, so the Pallas design (one program holds the whole
-//   state) does not carry over. State columns are independent, so the grid
-//   is (dv / 32, H, B): each block owns a [dk, 32] fp32 state tile in shared
-//   memory (48 KB at dk = 384), one column per lane, and walks the chunks in
-//   order. Per chunk it stages the gates and their cumulative sum, then
-//   takes the chunk's rows 32 at a time: the row tile of q goes to shared
-//   memory (bf16, 16-byte copies), each warp owns 4 of its rows for y, and
-//   y_state is the q tile times the state tile. The decay-masked scores are
-//   recomputed for the block's own tile from 32-key tiles of k, skipping
-//   every key tile above the diagonal: each warp computes one 16 x 8 score
-//   tile with mma.sync, masks and decays it into shared memory, and the
-//   block multiplies the 32 x 32 tile by the key tile's v. After the last
-//   row tile (a barrier: y read the old state), the state update streams the
-//   chunk's keys once more, each warp accumulating its rows of the state
-//   tile in registers (k * exp(tot - cum + log_i) rounded in fp32 first, as
-//   the reference rounds k_scaled). q and k tiles are padded rows (stride
-//   dk + 8 bf16) so the fragment loads do not collide in banks. The block
-//   uses ~108 KB of shared memory and at most 128 registers a thread, so two
-//   blocks share an SM. The price of the column split is that every block
-//   recomputes its chunk's q k^T (dv / 32 times per (b, h)); on the tensor
-//   cores that is a small part of the work. Any W, S multiple of W,
-//   1 <= dk <= 512 and any dv work (the mLSTM's dv = hd + 1 ends in a
-//   one-column tile); ragged tiles are masked.
+// Design: the state is 576 KB per (b, h) at dk = dv = 384, more than a
+//   block's shared memory, so the grid splits the state columns: grid
+//   (ceil(dv / CW), H, B), each block holding a [dk, CW] fp32 state tile in
+//   shared memory and walking the chunks in order. CW (16, 32 or 64) and the
+//   shared memory come from the Python side (`ssd_scan.py::geometry`) and are
+//   checked here: CW = 64 halves the blocks that recompute a chunk's q k^T
+//   against 32, CW = 16 keeps dv = 1 from idling 63 of 64 columns.
+//   Per chunk, 64 rows at a time (a row tile):
+//   - the q row tile is staged with cp.async in four commit groups, and the
+//     state read y = q.S starts on the first group while the rest land;
+//   - key tiles of 16 keys up to the diagonal follow, double-buffered: k by
+//     cp.async, v by register prefetch (converted to fp32 once, any dv and
+//     alignment), the next tile in flight while the current one is used;
+//   - each warp computes one 16 x 8 tile of q k^T with mma.sync, masked and
+//     decayed into a shared score tile, and P.V accumulates onto the state
+//     read's (scaled) sums.
+//   Then the state update streams the chunk's key tiles once more: k_scaled
+//   = fp32(k * exp(tot - cum + log_i)) is computed once per staged key tile
+//   into shared memory, and every thread accumulates its [rows x 4] share of
+//   k_scaled^T v in registers.
+//   All three fp32 products are register micro-tiles: a thread owns 4
+//   columns of MR rows of y (MR = 4 at CW = 64) or of up to 24 state rows,
+//   reads its operands with 16-byte shared loads (q as 8 bf16, S, P, v and
+//   k_scaled as 4 fp32), and every value loaded feeds MR or 4 FMAs (24 for
+//   v in the update). Rows padded to dk + 8 bf16 keep the mma fragment loads
+//   and the q reads free of bank conflicts. Any W <= 1024 dividing S,
+//   1 <= dk <= 512 and any dv work; ragged row, key, column and dk tiles
+//   are masked (zero-filled copies); dk % 8 != 0 or unaligned q, k stage
+//   with plain copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,79 +70,119 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 32;                     // state columns per block
-constexpr int kRows = 32;                     // chunk rows per row tile
-constexpr int kKeys = 32;                     // chunk keys per key tile
-constexpr int kRowsPerWarp = kRows / kWarps;  // 4
+constexpr int kRows = 64;        // chunk rows per row tile
+constexpr int kKeys = 16;        // chunk keys per key tile
+constexpr int kPLd = kKeys + 4;  // row stride of the score tile (floats)
+constexpr int kQPieces = 4;      // commit groups of a q row tile
 constexpr int kMaxDk = 512;
-constexpr int kMaxStateRowsPerWarp = kMaxDk / kWarps;  // 64
 constexpr int kMaxChunk = 1024;
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
+
+// the per-thread tiling at CW state columns per block: 4 columns a thread,
+// kMR rows of y, at most kMI rows of the state update
+template <int CW>
+struct Tile {
+  static constexpr int kColGroups = CW / 4;
+  static constexpr int kRowGroups = kThreads / kColGroups;
+  static constexpr int kMR = kRows / kRowGroups;
+  static constexpr int kMaxDkHere = CW == 64 ? 384 : kMaxDk;
+  static constexpr int kMI = kMaxDkHere / kRowGroups;
+  static constexpr int kMinBlocks = 1;
+};
+static_assert(Tile<64>::kMR == 4 && Tile<32>::kMR == 2 && Tile<16>::kMR == 1, "");
+static_assert(Tile<64>::kMI == 24 && Tile<32>::kMI == 16 && Tile<16>::kMI == 8, "");
 
 // dk padded to the mma's k step (16); tile rows hold 8 more bf16
 __host__ __device__ __forceinline__ int padded_dk(int dk) { return (dk + 15) & ~15; }
 __host__ __device__ __forceinline__ int tile_ld(int dk) { return padded_dk(dk) + 8; }
 
-// bytes of dynamic shared memory for (dk, W)
-__host__ __device__ __forceinline__ size_t smem_bytes(int dk, int W) {
-  return (size_t)padded_dk(dk) * kCols * 4        // state tile
-         + 2 * (size_t)kRows * tile_ld(dk) * 2    // q row tile, k key tile (bf16)
-         + (size_t)kKeys * kCols * 4              // v key tile
-         + (size_t)kRows * (kKeys + 1) * 4        // decay-masked scores
-         + 3 * (size_t)W * 4;                     // cum, log_i, k scale
+// state columns per block, as ssd_scan.py::cols_per_block chooses them
+int cols_per_block(int dk, int dv) {
+  return dv <= 16 ? 16 : (dv <= 32 || dk > 384) ? 32 : 64;
 }
 
-// rows [t, t + n) of a [B, S, H, dk] bf16 array at (b, h) -> dst[r][i]
-// (bf16, row stride ld), zero past n rows and dk columns, kRows rows in all.
-// vec: dk % 8 == 0 and 16-byte aligned rows, copied 8 values at a time.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
+// bytes of dynamic shared memory, as ssd_scan.py::smem_bytes counts them
+size_t smem_bytes(int dk, int W, int cw) {
+  const size_t dkp = padded_dk(dk), ld = tile_ld(dk);
+  return dkp * cw * 4                       // state tile
+         + (size_t)kRows * ld * 2           // q row tile (bf16); k_scaled later
+         + 2 * (size_t)kKeys * ld * 2       // two k key tiles (bf16)
+         + 2 * (size_t)kKeys * cw * 4       // two v key tiles (fp32)
+         + (size_t)kRows * kPLd * 4         // decay-masked scores
+         + 3 * (size_t)W * 4;               // cum, log_i, k scale
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [0, nrows) of dst (bf16, row stride ld), 16-byte chunks [c0, c1) of
+// each (8 bf16 apiece), from rows [0, n) of src (row r at src + r * stride,
+// dk values); zero past n rows and dk columns. vec (dk % 8 == 0, 16-byte
+// aligned rows): cp.async, in the caller's commit group; else plain copies.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, int nrows,
                                            const __nv_bfloat16* __restrict__ src,
-                                           int b, int t, int n, int S, int H,
-                                           int h, int dk, int dkp, bool vec) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+                                           size_t stride, int n, int dk,
+                                           int c0, int c1, bool vec) {
+  const int nc = c1 - c0;
   if (vec) {
-    const int nv = dk >> 3, nvp = dkp >> 3;
-#pragma unroll
-    for (int rr = 0; rr < kRows / kWarps; ++rr) {
-      const int r = warp + rr * kWarps;
-      const uint4* row = reinterpret_cast<const uint4*>(
-          src + ((size_t)(b * S + t + r) * H + h) * dk);
-      for (int c = lane; c < nvp; c += 32) {
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n && c < nv) val = row[c];
-        *reinterpret_cast<uint4*>(dst + r * ld + 8 * c) = val;
-      }
+    const int nv = dk >> 3;
+    for (int idx = threadIdx.x; idx < nrows * nc; idx += kThreads) {
+      const int r = idx / nc, c = c0 + idx % nc;
+      const bool ok = r < n && c < nv;
+      cp_async16(dst + r * ld + 8 * c, ok ? src + r * stride + 8 * c : src, ok);
     }
   } else {
-    for (int r = warp; r < kRows; r += kWarps)
-      for (int i = lane; i < dkp; i += 32)
-        dst[r * ld + i] = (r < n && i < dk)
-                              ? src[((size_t)(b * S + t + r) * H + h) * dk + i]
-                              : __float2bfloat16(0.f);
+    const int ne = 8 * nc;
+    for (int idx = threadIdx.x; idx < nrows * ne; idx += kThreads) {
+      const int r = idx / ne, i = 8 * c0 + idx % ne;
+      dst[r * ld + i] = (r < n && i < dk) ? src[r * stride + i]
+                                          : __float2bfloat16(0.f);
+    }
   }
 }
 
-// v[t .. t + n)[col] of a [B, S, H, dv] bf16 array -> v_s[u][lane] (fp32)
-__device__ __forceinline__ void stage_v(float* v_s,
-                                        const __nv_bfloat16* __restrict__ v,
-                                        int b, int t, int n, int S, int H,
-                                        int h, int dv, int col, bool col_ok) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int u = warp; u < kKeys; u += kWarps)
-    v_s[u * kCols + lane] =
-        (u < n && col_ok)
-            ? __bfloat162float(v[((size_t)(b * S + t + u) * H + h) * dv + col])
-            : 0.f;
+// v rows [0, n) (row r at src + r * stride), columns [col0, col0 + CW) below
+// dv, into registers: the thread's CW / 16 values of a kKeys x CW tile
+template <int CW>
+__device__ __forceinline__ void load_v(float (&vr)[CW / 16],
+                                       const __nv_bfloat16* __restrict__ src,
+                                       size_t stride, int n, int col0, int dv) {
+#pragma unroll
+  for (int j = 0; j < CW / 16; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    const int u = idx / CW, c = col0 + idx % CW;
+    vr[j] = (u < n && c < dv) ? __bfloat162float(src[u * stride + c]) : 0.f;
+  }
 }
 
-// four consecutive bf16 (8-byte aligned) as floats
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+template <int CW>
+__device__ __forceinline__ void store_v(float* v_s, const float (&vr)[CW / 16]) {
+#pragma unroll
+  for (int j = 0; j < CW / 16; ++j) v_s[threadIdx.x + j * kThreads] = vr[j];
+}
+
+// eight bf16 (a uint4) as floats
+__device__ __forceinline__ void unpack8(const uint4 raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate
@@ -147,7 +196,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int CW>
+__global__ void __launch_bounds__(kThreads, Tile<CW>::kMinBlocks)
 ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -157,102 +207,168 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ y,
                 float* __restrict__ state_out,
                 int S, int H, int dk, int dv, int W, int vec) {
+  using T = Tile<CW>;
+  constexpr int MR = T::kMR, MI = T::kMI;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kCols + lane;
-  const bool col_ok = col < dv;
+  const int col0 = blockIdx.x * CW;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int dkp = padded_dk(dk);
   const int ld = tile_ld(dk);
+  const int nchunks = dkp >> 3;  // 16-byte chunks of a tile row
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* S_s = reinterpret_cast<float*>(smem_raw);            // [dkp][kCols]
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(S_s + dkp * kCols);  // [kRows][ld]
-  __nv_bfloat16* k_s = q_s + kRows * ld;                      // [kKeys][ld]
-  float* v_s = reinterpret_cast<float*>(k_s + kKeys * ld);    // [kKeys][kCols]
-  float* p_s = v_s + kKeys * kCols;                           // [kRows][kKeys + 1]
-  float* cum_s = p_s + kRows * (kKeys + 1);                   // [W]
-  float* li_s = cum_s + W;                                    // [W]
-  float* ks_s = li_s + W;                                     // [W] exp(tot - cum + log_i)
+  float* S_s = reinterpret_cast<float*>(smem_raw);                       // [dkp][CW]
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(S_s + dkp * CW);  // [kRows][ld]
+  float* ks_s = reinterpret_cast<float*>(q_s);           // [kKeys][dkp], the update
+  __nv_bfloat16* k_s = q_s + kRows * ld;                  // [2][kKeys][ld]
+  float* v_s = reinterpret_cast<float*>(k_s + 2 * kKeys * ld);  // [2][kKeys][CW]
+  float* p_s = v_s + 2 * kKeys * CW;                      // [kRows][kPLd]
+  float* cum_s = p_s + kRows * kPLd;                      // [W]
+  float* li_s = cum_s + W;                                // [W]
+  float* ksc_s = li_s + W;                                // [W] exp(tot - cum + log_i)
+
+  // the thread's 4 columns, its rows of y and of the state update
+  const int cg = tid % T::kColGroups, rg = tid / T::kColGroups;
+  const int c0 = 4 * cg;
+  const int yr0 = rg * MR;
+  const int ipt = ((dkp + T::kRowGroups - 1) / T::kRowGroups + 3) & ~3;
+  const int i0 = rg * ipt;
+  // the warp's 16 x 8 score tile and its mma fragment coordinates
+  const int srow = (warp >> 1) * 16, skey = (warp & 1) * 8;
+  const int g = lane >> 2, tq = lane & 3;
 
   const size_t st_base = (size_t)(b * H + h) * dk * dv;
-  for (int i = warp; i < dkp; i += kWarps)
-    S_s[i * kCols + lane] = (state_in != nullptr && i < dk && col_ok)
-                                ? state_in[st_base + (size_t)i * dv + col]
-                                : 0.f;
+  for (int idx = tid; idx < dkp * CW; idx += kThreads) {
+    const int i = idx / CW, c = col0 + idx % CW;
+    S_s[idx] = (state_in != nullptr && i < dk && c < dv)
+                   ? state_in[st_base + (size_t)i * dv + c] : 0.f;
+  }
 
-  // the warp's state rows in the update: [rbase, rbase + rpw)
-  const int rpw = ((dkp + kWarps - 1) / kWarps + 3) & ~3;
-  const int rbase = warp * rpw;
-  const int my_row0 = warp * kRowsPerWarp;  // the warp's rows of y
-  // the warp's 16 x 8 score tile and its mma fragment coordinates
-  const int srow = (warp >> 2) * 16, skey = (warp & 3) * 8;
-  const int g = lane >> 2, tq = lane & 3;
-  const uint32_t* qa = reinterpret_cast<const uint32_t*>(q_s + (srow + g) * ld);
-  const uint32_t* qb = reinterpret_cast<const uint32_t*>(q_s + (srow + g + 8) * ld);
-  const uint32_t* kf = reinterpret_cast<const uint32_t*>(k_s + (skey + g) * ld);
-
+  const size_t qk_stride = (size_t)H * dk;
+  const size_t v_stride = (size_t)H * dv;
   const int nc = S / W;
   for (int ci = 0; ci < nc; ++ci) {
     const int t0 = ci * W;
-    __syncthreads();  // the previous chunk is done with cum_s, li_s, ks_s
-    for (int w = threadIdx.x; w < W; w += kThreads) {
+    __syncthreads();  // the previous chunk is done with the gate arrays
+    for (int w = tid; w < W; w += kThreads) {
       const size_t gi = (size_t)(b * S + t0 + w) * H + h;
       cum_s[w] = log_f[gi];
       li_s[w] = log_i[gi];
     }
     __syncthreads();
-    if (threadIdx.x == 0) {  // inclusive cumulative sum, in order
-      float acc = 0.f;
-      for (int w = 0; w < W; ++w) {
-        acc += cum_s[w];
-        cum_s[w] = acc;
+    if (warp == 0) {  // inclusive cumulative sum: each lane a run, then lanes
+      const int per = (W + 31) >> 5;
+      const int beg = min(W, lane * per), end = min(W, beg + per);
+      float run = 0.f;
+      for (int w = beg; w < end; ++w) {
+        run += cum_s[w];
+        cum_s[w] = run;
       }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      float before = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) before = 0.f;
+      for (int w = beg; w < end; ++w) cum_s[w] += before;
     }
     __syncthreads();
     const float tot = cum_s[W - 1];
-    for (int w = threadIdx.x; w < W; w += kThreads)
-      ks_s[w] = expf(tot - cum_s[w] + li_s[w]);
+    for (int w = tid; w < W; w += kThreads)
+      ksc_s[w] = expf(tot - cum_s[w] + li_s[w]);
 
-    // ---- y for the chunk, 32 rows at a time, from the state before it
+    const __nv_bfloat16* q_chunk = q + ((size_t)(b * S + t0) * H + h) * dk;
+    const __nv_bfloat16* k_chunk = k + ((size_t)(b * S + t0) * H + h) * dk;
+    const __nv_bfloat16* v_chunk = v + ((size_t)(b * S + t0) * H + h) * dv;
+    float vr[CW / 16];
+
+    // ---- y for the chunk, 64 rows at a time, from the state before it
     for (int r0 = 0; r0 < W; r0 += kRows) {
       const int nr = min(kRows, W - r0);
-      __syncthreads();  // q_s, k_s, v_s, p_s free
-      stage_rows(q_s, ld, q, b, t0 + r0, nr, S, H, h, dk, dkp, vec);
-      __syncthreads();
+      const int kend = r0 + nr;  // keys u <= the tile's last row
+      const int nkt = (kend + kKeys - 1) / kKeys;
+      __syncthreads();  // q_s, k_s, v_s and p_s are free
+#pragma unroll
+      for (int j = 0; j < kQPieces; ++j) {
+        stage_rows(q_s, ld, kRows, q_chunk + r0 * qk_stride, qk_stride, nr, dk,
+                   j * nchunks / kQPieces, (j + 1) * nchunks / kQPieces, vec);
+        cp_async_commit();
+      }
+      stage_rows(k_s, ld, kKeys, k_chunk, qk_stride, min(kKeys, kend), dk, 0,
+                 nchunks, vec);
+      cp_async_commit();
+      load_v<CW>(vr, v_chunk, v_stride, min(kKeys, kend), col0, dv);
 
-      float ys[kRowsPerWarp], yi[kRowsPerWarp];
+      // state read: acc[m][c] = q[yr0 + m] . S[:, c0 + c], piece by piece
+      float acc[MR][4];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) ys[r] = yi[r] = 0.f;
-      for (int i = 0; i < dkp; i += 4) {
-        const float s0 = S_s[(i + 0) * kCols + lane];
-        const float s1 = S_s[(i + 1) * kCols + lane];
-        const float s2 = S_s[(i + 2) * kCols + lane];
-        const float s3 = S_s[(i + 3) * kCols + lane];
+      for (int m = 0; m < MR; ++m)
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 qq = load4(q_s + (my_row0 + r) * ld + i);
-          ys[r] = fmaf(qq.x, s0, ys[r]);
-          ys[r] = fmaf(qq.y, s1, ys[r]);
-          ys[r] = fmaf(qq.z, s2, ys[r]);
-          ys[r] = fmaf(qq.w, s3, ys[r]);
+        for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kQPieces; ++j) {
+        if (j == 0) cp_async_wait<kQPieces>();
+        else if (j == 1) cp_async_wait<kQPieces - 1>();
+        else if (j == 2) cp_async_wait<kQPieces - 2>();
+        else cp_async_wait<kQPieces - 3>();
+        __syncthreads();
+        const int kb = 8 * (j * nchunks / kQPieces);
+        const int ke = 8 * ((j + 1) * nchunks / kQPieces);
+        for (int i = kb; i < ke; i += 8) {
+          float qf[MR][8];
+#pragma unroll
+          for (int m = 0; m < MR; ++m)
+            unpack8(*reinterpret_cast<const uint4*>(q_s + (yr0 + m) * ld + i), qf[m]);
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const float4 s = *reinterpret_cast<const float4*>(S_s + (i + kk) * CW + c0);
+#pragma unroll
+            for (int m = 0; m < MR; ++m) {
+              acc[m][0] = fmaf(qf[m][kk], s.x, acc[m][0]);
+              acc[m][1] = fmaf(qf[m][kk], s.y, acc[m][1]);
+              acc[m][2] = fmaf(qf[m][kk], s.z, acc[m][2]);
+              acc[m][3] = fmaf(qf[m][kk], s.w, acc[m][3]);
+            }
+          }
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int w = r0 + my_row0 + r;
-        ys[r] = w < W ? ys[r] * expf(cum_s[w]) : 0.f;
+      for (int m = 0; m < MR; ++m) {
+        const int w = r0 + yr0 + m;
+        const float e = w < W ? expf(cum_s[w]) : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][c] *= e;
       }
 
-      const int kend = r0 + nr;  // keys u <= the tile's last row
-      for (int u0 = 0; u0 < kend; u0 += kKeys) {
+      // intra-chunk: key tiles up to the diagonal, the next one in flight
+      const uint32_t* qa = reinterpret_cast<const uint32_t*>(q_s + (srow + g) * ld);
+      const uint32_t* qb = reinterpret_cast<const uint32_t*>(q_s + (srow + g + 8) * ld);
+      for (int t = 0; t < nkt; ++t) {
+        const int buf = t & 1;
+        const int u0 = t * kKeys;
         const int nu = min(kKeys, kend - u0);
-        __syncthreads();  // k_s, v_s, p_s free
-        stage_rows(k_s, ld, k, b, t0 + u0, nu, S, H, h, dk, dkp, vec);
-        stage_v(v_s, v, b, t0 + u0, nu, S, H, h, dv, col, col_ok);
-        __syncthreads();
-        // the warp's 16 x 8 tile of q k^T on the tensor cores
+        float* vb = v_s + buf * kKeys * CW;
+        store_v<CW>(vb, vr);
+        const bool more = t + 1 < nkt;
+        if (more) {
+          const int u1 = u0 + kKeys;
+          stage_rows(k_s + (buf ^ 1) * kKeys * ld, ld, kKeys,
+                     k_chunk + u1 * qk_stride, qk_stride, min(kKeys, kend - u1),
+                     dk, 0, nchunks, vec);
+          cp_async_commit();
+          load_v<CW>(vr, v_chunk + u1 * v_stride, v_stride,
+                     min(kKeys, kend - u1), col0, dv);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // key tile t and its v are in shared memory
+        const uint32_t* kf = reinterpret_cast<const uint32_t*>(
+            k_s + buf * kKeys * ld + (skey + g) * ld);
         float sc[4] = {0.f, 0.f, 0.f, 0.f};
         for (int k0 = 0; k0 < dkp; k0 += 16) {
           const int c = (k0 >> 1) + tq;
@@ -267,98 +383,175 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
           float p = 0.f;
           if (key < nu && u <= w && w < W)
             p = sc[e] * expf(cum_s[w] - cum_s[u] + li_s[u]);
-          p_s[row * (kKeys + 1) + key] = p;
+          p_s[row * kPLd + key] = p;
         }
-        __syncthreads();
-        for (int uu = 0; uu < nu; ++uu) {
-          const float vv = v_s[uu * kCols + lane];
+        __syncthreads();  // the score tile is complete
 #pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r)
-            yi[r] = fmaf(p_s[(my_row0 + r) * (kKeys + 1) + uu], vv, yi[r]);
+        for (int uu = 0; uu < kKeys; uu += 4) {
+          float4 p[MR];
+#pragma unroll
+          for (int m = 0; m < MR; ++m)
+            p[m] = *reinterpret_cast<const float4*>(p_s + (yr0 + m) * kPLd + uu);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float4 vv = *reinterpret_cast<const float4*>(vb + (uu + x) * CW + c0);
+#pragma unroll
+            for (int m = 0; m < MR; ++m) {
+              const float pm = x == 0 ? p[m].x : x == 1 ? p[m].y : x == 2 ? p[m].z : p[m].w;
+              acc[m][0] = fmaf(pm, vv.x, acc[m][0]);
+              acc[m][1] = fmaf(pm, vv.y, acc[m][1]);
+              acc[m][2] = fmaf(pm, vv.z, acc[m][2]);
+              acc[m][3] = fmaf(pm, vv.w, acc[m][3]);
+            }
+          }
         }
       }
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int w = r0 + my_row0 + r;
-        if (w < W && col_ok)
-          y[((size_t)(b * S + t0 + w) * H + h) * dv + col] =
-              __float2bfloat16(ys[r] + yi[r]);
+      for (int m = 0; m < MR; ++m) {
+        const int w = r0 + yr0 + m;
+        if (w >= W) continue;
+        __nv_bfloat16* yrow = y + ((size_t)(b * S + t0 + w) * H + h) * dv;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col0 + c0 + c < dv) yrow[col0 + c0 + c] = __float2bfloat16(acc[m][c]);
       }
     }
 
-    // ---- state update: S <- S * exp(tot) + (k * ks)^T v over the chunk
-    float acc[kMaxStateRowsPerWarp];
+    // ---- state update: S <- S * exp(tot) + k_scaled^T v over the chunk
+    float dacc[MI][4];
 #pragma unroll
-    for (int j = 0; j < kMaxStateRowsPerWarp; ++j) acc[j] = 0.f;
-    for (int u0 = 0; u0 < W; u0 += kKeys) {
-      const int nu = min(kKeys, W - u0);
-      __syncthreads();  // every read of k_s, v_s and of the old S_s is done
-      stage_rows(k_s, ld, k, b, t0 + u0, nu, S, H, h, dk, dkp, vec);
-      stage_v(v_s, v, b, t0 + u0, nu, S, H, h, dv, col, col_ok);
-      __syncthreads();
-      for (int uu = 0; uu < nu; ++uu) {
-        const float vv = v_s[uu * kCols + lane];
-        const float ksu = ks_s[u0 + uu];
-        const __nv_bfloat16* kr = k_s + uu * ld + rbase;
+    for (int j = 0; j < MI; ++j)
 #pragma unroll
-        for (int j = 0; j < kMaxStateRowsPerWarp; j += 4) {
-          if (j < rpw && rbase + j < dkp) {
-            const float4 kk = load4(kr + j);
-            acc[j + 0] = fmaf(kk.x * ksu, vv, acc[j + 0]);
-            acc[j + 1] = fmaf(kk.y * ksu, vv, acc[j + 1]);
-            acc[j + 2] = fmaf(kk.z * ksu, vv, acc[j + 2]);
-            acc[j + 3] = fmaf(kk.w * ksu, vv, acc[j + 3]);
+      for (int c = 0; c < 4; ++c) dacc[j][c] = 0.f;
+    const int nkt = (W + kKeys - 1) / kKeys;
+    __syncthreads();  // every read of q_s, k_s, v_s and of the old state is done
+    stage_rows(k_s, ld, kKeys, k_chunk, qk_stride, min(kKeys, W), dk, 0, nchunks, vec);
+    cp_async_commit();
+    load_v<CW>(vr, v_chunk, v_stride, min(kKeys, W), col0, dv);
+    for (int t = 0; t < nkt; ++t) {
+      const int buf = t & 1;
+      const int u0 = t * kKeys;
+      float* vb = v_s + buf * kKeys * CW;
+      store_v<CW>(vb, vr);
+      const bool more = t + 1 < nkt;
+      if (more) {
+        const int u1 = u0 + kKeys;
+        stage_rows(k_s + (buf ^ 1) * kKeys * ld, ld, kKeys,
+                   k_chunk + u1 * qk_stride, qk_stride, min(kKeys, W - u1), dk,
+                   0, nchunks, vec);
+        cp_async_commit();
+        load_v<CW>(vr, v_chunk + u1 * v_stride, v_stride, min(kKeys, W - u1),
+                   col0, dv);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // key tile t and its v are in shared memory
+      // k_scaled = fp32(k * exp(tot - cum + log_i)), once per key tile
+      const __nv_bfloat16* kt = k_s + buf * kKeys * ld;
+      for (int idx = tid; idx < kKeys * (dkp >> 2); idx += kThreads) {
+        const int u = idx / (dkp >> 2), i = 4 * (idx % (dkp >> 2));
+        const float sc = u0 + u < W ? ksc_s[u0 + u] : 0.f;
+        const uint2 raw = *reinterpret_cast<const uint2*>(kt + u * ld + i);
+        float4 o;
+        o.x = __uint_as_float(raw.x << 16) * sc;
+        o.y = __uint_as_float(raw.x & 0xffff0000u) * sc;
+        o.z = __uint_as_float(raw.y << 16) * sc;
+        o.w = __uint_as_float(raw.y & 0xffff0000u) * sc;
+        *reinterpret_cast<float4*>(ks_s + u * dkp + i) = o;
+      }
+      __syncthreads();  // k_scaled is complete
+#pragma unroll 2
+      for (int u = 0; u < kKeys; ++u) {
+        const float4 vv = *reinterpret_cast<const float4*>(vb + u * CW + c0);
+        const float* kr = ks_s + u * dkp + i0;
+#pragma unroll
+        for (int j = 0; j < MI; j += 4) {
+          if (j < ipt && i0 + j < dkp) {
+            const float4 a = *reinterpret_cast<const float4*>(kr + j);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              dacc[j + x][0] = fmaf(av[x], vv.x, dacc[j + x][0]);
+              dacc[j + x][1] = fmaf(av[x], vv.y, dacc[j + x][1]);
+              dacc[j + x][2] = fmaf(av[x], vv.z, dacc[j + x][2]);
+              dacc[j + x][3] = fmaf(av[x], vv.w, dacc[j + x][3]);
+            }
           }
         }
       }
     }
     const float decay = expf(tot);
 #pragma unroll
-    for (int j = 0; j < kMaxStateRowsPerWarp; ++j) {
-      const int i = rbase + j;
-      if (j < rpw && i < dkp)
-        S_s[i * kCols + lane] = S_s[i * kCols + lane] * decay + acc[j];
+    for (int j = 0; j < MI; ++j) {
+      const int i = i0 + j;
+      if (j < ipt && i < dkp) {
+        float4* sp = reinterpret_cast<float4*>(S_s + i * CW + c0);
+        float4 s = *sp;
+        s.x = s.x * decay + dacc[j][0];
+        s.y = s.y * decay + dacc[j][1];
+        s.z = s.z * decay + dacc[j][2];
+        s.w = s.w * decay + dacc[j][3];
+        *sp = s;
+      }
     }
   }
 
   __syncthreads();
-  if (col_ok)
-    for (int i = warp; i < dk; i += kWarps)
-      state_out[st_base + (size_t)i * dv + col] = S_s[i * kCols + lane];
+  for (int idx = tid; idx < dk * CW; idx += kThreads) {
+    const int i = idx / CW, c = col0 + idx % CW;
+    if (c < dv) state_out[st_base + (size_t)i * dv + c] = S_s[idx];
+  }
 }
 
-}  // namespace
-
-// q, k [B, S, H, dk], v [B, S, H, dv] bf16; log_f, log_i [B, S, H] fp32;
-// state_in [B, H, dk, dv] fp32 or null (zeros); y [B, S, H, dv] bf16;
-// state_out [B, H, dk, dv] fp32; all contiguous; W divides S. Returns the
-// cudaError_t of the launch.
-extern "C" int ssd_scan_bf16(const void* q, const void* k, const void* v,
-                             const void* log_f, const void* log_i,
-                             const void* state_in, void* y, void* state_out,
-                             int B, int S, int H, int dk, int dv, int W,
-                             void* stream) {
-  if (B < 1 || H < 1 || dk < 1 || dk > kMaxDk || dv < 1 || W < 1 ||
-      W > kMaxChunk || S % W != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t shmem = smem_bytes(dk, W);
-  static size_t opted_in = 48 * 1024;
-  if (shmem > opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = shmem;
-  }
-  // 16-byte row copies need dk % 8 == 0 and 16-byte aligned q and k
-  const int vec = (dk % 8 == 0) && ((reinterpret_cast<uintptr_t>(q) |
-                                     reinterpret_cast<uintptr_t>(k)) % 16 == 0);
-  const dim3 grid((dv + kCols - 1) / kCols, H, B);
-  ssd_scan_kernel<<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
+template <int CW>
+int launch(const void* q, const void* k, const void* v, const void* log_f,
+           const void* log_i, const void* state_in, void* y, void* state_out,
+           int B, int S, int H, int dk, int dv, int W, int vec, size_t smem,
+           cudaStream_t s) {
+  if (dk > Tile<CW>::kMaxDkHere) return (int)cudaErrorInvalidValue;
+  // above 48 KB the kernel must be allowed the memory, once per instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ssd_scan_kernel<CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((dv + CW - 1) / CW, H, B);
+  ssd_scan_kernel<CW><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(log_f),
       static_cast<const float*>(log_i), static_cast<const float*>(state_in),
       static_cast<__nv_bfloat16*>(y), static_cast<float*>(state_out), S, H, dk,
       dv, W, vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k [B, S, H, dk], v [B, S, H, dv] bf16; log_f, log_i [B, S, H] fp32;
+// state_in [B, H, dk, dv] fp32 or null (zeros); y [B, S, H, dv] bf16;
+// state_out [B, H, dk, dv] fp32; all contiguous; W divides S. Launch
+// geometry from the caller (ssd_scan.py::geometry): cols state columns per
+// block and smem bytes of dynamic shared memory; anything else is refused.
+// Returns the cudaError_t of the launch.
+extern "C" int ssd_scan_bf16(const void* q, const void* k, const void* v,
+                             const void* log_f, const void* log_i,
+                             const void* state_in, void* y, void* state_out,
+                             int B, int S, int H, int dk, int dv, int W,
+                             int cols, int smem, void* stream) {
+  if (B < 1 || H < 1 || dk < 1 || dk > kMaxDk || dv < 1 || W < 1 ||
+      W > kMaxChunk || S % W != 0)
+    return (int)cudaErrorInvalidValue;
+  if (cols != cols_per_block(dk, dv) || smem < 0 ||
+      (size_t)smem != smem_bytes(dk, W, cols) || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte row copies need dk % 8 == 0 and 16-byte aligned q and k
+  const int vec = (dk % 8 == 0) && ((reinterpret_cast<uintptr_t>(q) |
+                                     reinterpret_cast<uintptr_t>(k)) % 16 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 16: return launch<16>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
+    case 32: return launch<32>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
+    case 64: return launch<64>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

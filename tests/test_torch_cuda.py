@@ -182,6 +182,10 @@ SCAN_CASES = [
     (8, 256, 4, 384, 384, 256, False),   # full width, the memory alone
     (8, 256, 4, 384, 385, 256, False),   # the mLSTM's launch: v ‖ ones
     (2, 512, 4, 384, 1, 256, True),      # two full-width chunks, dv = 1
+    (2, 64, 2, 16, 64, 64, True),        # dk = 16 (hymba's ssm_state)
+    (2, 96, 2, 100, 48, 32, True),       # dk = 100: not a micro-tile multiple
+    (2, 400, 2, 384, 96, 200, True),     # chunk 200: a ragged row tile
+    (2, 512, 4, 384, 385, 64, True),     # 8 chunks of 64, the mLSTM's dv
 ]
 
 
@@ -216,6 +220,38 @@ def test_ssd_scan_kernel(dev, case):
     yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=chunk, initial_state=s0)
     _close(y, yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
     _close(st, sr, 2e-5, 2e-5 * float(sr.abs().max()))
+
+
+def test_ssd_scan_replays_in_a_cuda_graph(dev):
+    """The scan captured in a CUDA graph replays to the eager output, also
+    after the inputs change in place. Same kernel, same inputs, a fixed
+    order of every sum and no atomics: equal bit for bit."""
+    B, S, H, dk, dv, chunk = 2, 128, 2, 64, 65, 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, lf, li, s0 = _scan_inputs(B, S, H, dk, dv, True, gen, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ssd_scan_op(q, k, v, lf, li, chunk=chunk,
+                               initial_state=s0)
+    for step in range(2):
+        if step:
+            k.mul_(0.5)
+            v.add_(1.0)
+            s0.mul_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+        yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+        _close(captured[0], yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+        _close(captured[1], sr, 2e-5, 2e-5 * float(sr.abs().max()))
 
 
 def test_wrappers_raise_on_unsupported_card_inputs(dev):
