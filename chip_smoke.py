@@ -16,7 +16,9 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    kernel, plain version and the nearest single PyTorch call; print each
    attention launch's geometry (M tiles, cluster size, warps) and, at the
    headline shapes, each attention kernel's time over the library call's;
-   time decode attention at every cluster size and warp count it takes;
+   print each ssd_scan case's geometry (state columns a block, grid, blocks
+   per SM, waves) and its time over its bound; time decode attention at
+   every cluster size and warp count it takes;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
    tokens, 32 new tokens each, greedy; the launch counts are set to 0 just
@@ -52,6 +54,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
+SMS = 132                        # H100 SXM streaming multiprocessors
 
 # tolerances, kernel vs plain version on the same card inputs: the kernels
 # sum in other orders (rmsnorm); decode attention keeps p in fp32, flash
@@ -406,6 +409,7 @@ def scan_cases(dev):
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import geometry
     from repro_torch.models.linear_core import pad_mask_gates
 
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -453,8 +457,13 @@ def scan_cases(dev):
                     f"beyond rtol={rtol} atol={atol}; max_abs_err="
                     f"{float(err.max())}")
             errs.append(float(err.max()))
+        geo = geometry(B, H, hd, dv, min(chunk, S))
         rows.append(dict(
             case=case, max_abs_err=errs[0], state_max_abs_err=errs[1],
+            geometry=f"{geo.cols} state columns a block, grid {geo.grid} = "
+                     f"{geo.blocks} blocks of {geo.threads} threads, "
+                     f"{geo.smem_bytes} B shared memory, {geo.blocks_per_sm} "
+                     f"block(s) per SM, {geo.waves:.3f} waves on {SMS} SMs",
             bound=scan_bound(B, S, H, hd, dv, min(chunk, S), True),
             **timings(lambda: ssd_scan_op(*args, chunk=chunk,
                                           initial_state=s0),
@@ -753,6 +762,8 @@ def phases(dev):
                 f"bound_ms={r['bound'][0]} ({r['bound'][1]})")
             if "geometry" in r:
                 log(f"    launch: {r['geometry']}")
+            if kname == "ssd_scan":
+                log(f"    kernel / bound = {r['ms'] / r['bound'][0]}")
     for case, ms in decode_sweep(dev):
         log(f"  decode_attention geometry sweep {case}: ms={ms}")
     for kname in ("flash_attention", "decode_attention"):

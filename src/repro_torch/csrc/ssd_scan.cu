@@ -71,28 +71,29 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;        // chunk rows per row tile
-constexpr int kKeys = 16;        // chunk keys per key tile
+constexpr int kKeys = 32;        // chunk keys per key tile
 constexpr int kPLd = kKeys + 4;  // row stride of the score tile (floats)
 constexpr int kQPieces = 4;      // commit groups of a q row tile
 constexpr int kMaxDk = 512;
 constexpr int kMaxChunk = 1024;
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
 
-// the per-thread tiling at CW state columns per block: 4 columns a thread,
-// kMR rows of y, at most kMI rows of the state update
-template <int CW>
+// The per-thread tiling at CW state columns per block. y: 4 columns of MR
+// rows a thread. State update: 8 columns (two runs of 4, CW / 2 apart) of
+// MI consecutive state rows a thread, so k_scaled rows hold kUpdRows values
+// (dk padded with zeros).
+template <int CW, int MI>
 struct Tile {
-  static constexpr int kColGroups = CW / 4;
-  static constexpr int kRowGroups = kThreads / kColGroups;
-  static constexpr int kMR = kRows / kRowGroups;
-  static constexpr int kMaxDkHere = CW == 64 ? 384 : kMaxDk;
-  static constexpr int kMI = kMaxDkHere / kRowGroups;
-  static constexpr int kMinBlocks = 1;
+  static constexpr int kYColGroups = CW / 4;
+  static constexpr int kYRowGroups = kThreads / kYColGroups;
+  static constexpr int kMR = kRows / kYRowGroups;
+  static constexpr int kUColGroups = CW / 8;
+  static constexpr int kURowGroups = kThreads / kUColGroups;
+  static constexpr int kUpdRows = kURowGroups * MI;
+  static constexpr int kVals = kKeys * CW / kThreads;  // v values a thread stages
 };
-static_assert(Tile<64>::kMR == 4 && Tile<32>::kMR == 2 && Tile<16>::kMR == 1, "");
-static_assert(Tile<64>::kMI == 24 && Tile<32>::kMI == 16 && Tile<16>::kMI == 8, "");
 
-// dk padded to the mma's k step (16); tile rows hold 8 more bf16
+// dk padded to the mma's k step (16); q and k tile rows hold 8 more bf16
 __host__ __device__ __forceinline__ int padded_dk(int dk) { return (dk + 15) & ~15; }
 __host__ __device__ __forceinline__ int tile_ld(int dk) { return padded_dk(dk) + 8; }
 
@@ -101,15 +102,25 @@ int cols_per_block(int dk, int dv) {
   return dv <= 16 ? 16 : (dv <= 32 || dk > 384) ? 32 : 64;
 }
 
+// state rows a thread updates, as ssd_scan.py::update_rows chooses them: the
+// small instance where it covers dk, else the full one (dk <= 384 at 64
+// columns, dk <= 512 below)
+int update_rows(int dk, int cw) {
+  const int groups = kThreads / (cw / 8);
+  return 4 * groups >= padded_dk(dk) ? 4 : (cw == 64 ? 12 : 8);
+}
+
 // bytes of dynamic shared memory, as ssd_scan.py::smem_bytes counts them
 size_t smem_bytes(int dk, int W, int cw) {
   const size_t dkp = padded_dk(dk), ld = tile_ld(dk);
+  const size_t q_tile = (size_t)kRows * ld * 2;
+  const size_t ks = (size_t)kKeys * (kThreads / (cw / 8)) * update_rows(dk, cw) * 4;
   return dkp * cw * 4                       // state tile
-         + (size_t)kRows * ld * 2           // q row tile (bf16); k_scaled later
+         + (q_tile > ks ? q_tile : ks)      // q row tile (bf16), then k_scaled
          + 2 * (size_t)kKeys * ld * 2       // two k key tiles (bf16)
          + 2 * (size_t)kKeys * cw * 4       // two v key tiles (fp32)
          + (size_t)kRows * kPLd * 4         // decay-masked scores
-         + 3 * (size_t)W * 4;               // cum, log_i, k scale
+         + 2 * (size_t)W * 4;               // cum, log_i
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -156,23 +167,23 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, int nrows
 }
 
 // v rows [0, n) (row r at src + r * stride), columns [col0, col0 + CW) below
-// dv, into registers: the thread's CW / 16 values of a kKeys x CW tile
-template <int CW>
-__device__ __forceinline__ void load_v(float (&vr)[CW / 16],
+// dv, into registers: the thread's N values of a kKeys x CW tile (row-major)
+template <int CW, int N>
+__device__ __forceinline__ void load_v(float (&vr)[N],
                                        const __nv_bfloat16* __restrict__ src,
                                        size_t stride, int n, int col0, int dv) {
 #pragma unroll
-  for (int j = 0; j < CW / 16; ++j) {
+  for (int j = 0; j < N; ++j) {
     const int idx = threadIdx.x + j * kThreads;
     const int u = idx / CW, c = col0 + idx % CW;
     vr[j] = (u < n && c < dv) ? __bfloat162float(src[u * stride + c]) : 0.f;
   }
 }
 
-template <int CW>
-__device__ __forceinline__ void store_v(float* v_s, const float (&vr)[CW / 16]) {
+template <int N>
+__device__ __forceinline__ void store_v(float* v_s, const float (&vr)[N]) {
 #pragma unroll
-  for (int j = 0; j < CW / 16; ++j) v_s[threadIdx.x + j * kThreads] = vr[j];
+  for (int j = 0; j < N; ++j) v_s[threadIdx.x + j * kThreads] = vr[j];
 }
 
 // eight bf16 (a uint4) as floats
@@ -196,8 +207,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <int CW>
-__global__ void __launch_bounds__(kThreads, Tile<CW>::kMinBlocks)
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4 b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+template <int CW, int MI>
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -207,8 +225,9 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ y,
                 float* __restrict__ state_out,
                 int S, int H, int dk, int dv, int W, int vec) {
-  using T = Tile<CW>;
-  constexpr int MR = T::kMR, MI = T::kMI;
+  using T = Tile<CW, MI>;
+  constexpr int MR = T::kMR;
+  constexpr int KSLD = T::kUpdRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int col0 = blockIdx.x * CW;
@@ -217,26 +236,27 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
   const int dkp = padded_dk(dk);
   const int ld = tile_ld(dk);
   const int nchunks = dkp >> 3;  // 16-byte chunks of a tile row
+  const int region = max(kRows * ld * 2, kKeys * KSLD * 4);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* S_s = reinterpret_cast<float*>(smem_raw);                       // [dkp][CW]
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(S_s + dkp * CW);  // [kRows][ld]
-  float* ks_s = reinterpret_cast<float*>(q_s);           // [kKeys][dkp], the update
-  __nv_bfloat16* k_s = q_s + kRows * ld;                  // [2][kKeys][ld]
-  float* v_s = reinterpret_cast<float*>(k_s + 2 * kKeys * ld);  // [2][kKeys][CW]
-  float* p_s = v_s + 2 * kKeys * CW;                      // [kRows][kPLd]
-  float* cum_s = p_s + kRows * kPLd;                      // [W]
-  float* li_s = cum_s + W;                                // [W]
-  float* ksc_s = li_s + W;                                // [W] exp(tot - cum + log_i)
+  unsigned char* r0p = smem_raw + (size_t)dkp * CW * 4;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(r0p);           // [kRows][ld]
+  float* ks_s = reinterpret_cast<float*>(r0p);               // [kKeys][KSLD], the update
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(r0p + region);  // [2][kKeys][ld]
+  float* v_s = reinterpret_cast<float*>(k_s + 2 * kKeys * ld);          // [2][kKeys][CW]
+  float* p_s = v_s + 2 * kKeys * CW;                  // [kRows][kPLd]; k scale, the update
+  float* cum_s = p_s + kRows * kPLd;                  // [W]
+  float* li_s = cum_s + W;                            // [W]
 
-  // the thread's 4 columns, its rows of y and of the state update
-  const int cg = tid % T::kColGroups, rg = tid / T::kColGroups;
-  const int c0 = 4 * cg;
-  const int yr0 = rg * MR;
-  const int ipt = ((dkp + T::kRowGroups - 1) / T::kRowGroups + 3) & ~3;
-  const int i0 = rg * ipt;
-  // the warp's 16 x 8 score tile and its mma fragment coordinates
-  const int srow = (warp >> 1) * 16, skey = (warp & 1) * 8;
+  // y: the thread's 4 columns of MR rows
+  const int yc0 = 4 * (tid % T::kYColGroups);
+  const int yr0 = (tid / T::kYColGroups) * MR;
+  // state update: columns uc0 .. uc0 + 3 and CW / 2 + uc0 .., rows i0 .. i0 + MI
+  const int uc0 = 4 * (tid % T::kUColGroups);
+  const int i0 = (tid / T::kUColGroups) * MI;
+  // the warp's 16 x 16 score tile (two 16 x 8 mma tiles) and its fragments
+  const int srow = (warp >> 1) * 16, skey = (warp & 1) * 16;
   const int g = lane >> 2, tq = lane & 3;
 
   const size_t st_base = (size_t)(b * H + h) * dk * dv;
@@ -278,13 +298,11 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
     const float tot = cum_s[W - 1];
-    for (int w = tid; w < W; w += kThreads)
-      ksc_s[w] = expf(tot - cum_s[w] + li_s[w]);
 
     const __nv_bfloat16* q_chunk = q + ((size_t)(b * S + t0) * H + h) * dk;
     const __nv_bfloat16* k_chunk = k + ((size_t)(b * S + t0) * H + h) * dk;
     const __nv_bfloat16* v_chunk = v + ((size_t)(b * S + t0) * H + h) * dv;
-    float vr[CW / 16];
+    float vr[T::kVals];
 
     // ---- y for the chunk, 64 rows at a time, from the state before it
     for (int r0 = 0; r0 < W; r0 += kRows) {
@@ -303,7 +321,7 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
       load_v<CW>(vr, v_chunk, v_stride, min(kKeys, kend), col0, dv);
 
-      // state read: acc[m][c] = q[yr0 + m] . S[:, c0 + c], piece by piece
+      // state read: acc[m][c] = q[yr0 + m] . S[:, yc0 + c], piece by piece
       float acc[MR][4];
 #pragma unroll
       for (int m = 0; m < MR; ++m)
@@ -318,6 +336,7 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
         __syncthreads();
         const int kb = 8 * (j * nchunks / kQPieces);
         const int ke = 8 * ((j + 1) * nchunks / kQPieces);
+#pragma unroll 2
         for (int i = kb; i < ke; i += 8) {
           float qf[MR][8];
 #pragma unroll
@@ -325,14 +344,9 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
             unpack8(*reinterpret_cast<const uint4*>(q_s + (yr0 + m) * ld + i), qf[m]);
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk) {
-            const float4 s = *reinterpret_cast<const float4*>(S_s + (i + kk) * CW + c0);
+            const float4 s = *reinterpret_cast<const float4*>(S_s + (i + kk) * CW + yc0);
 #pragma unroll
-            for (int m = 0; m < MR; ++m) {
-              acc[m][0] = fmaf(qf[m][kk], s.x, acc[m][0]);
-              acc[m][1] = fmaf(qf[m][kk], s.y, acc[m][1]);
-              acc[m][2] = fmaf(qf[m][kk], s.z, acc[m][2]);
-              acc[m][3] = fmaf(qf[m][kk], s.w, acc[m][3]);
-            }
+            for (int m = 0; m < MR; ++m) fma4(acc[m], qf[m][kk], s);
           }
         }
       }
@@ -352,9 +366,8 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
         const int u0 = t * kKeys;
         const int nu = min(kKeys, kend - u0);
         float* vb = v_s + buf * kKeys * CW;
-        store_v<CW>(vb, vr);
-        const bool more = t + 1 < nkt;
-        if (more) {
+        store_v(vb, vr);
+        if (t + 1 < nkt) {
           const int u1 = u0 + kKeys;
           stage_rows(k_s + (buf ^ 1) * kKeys * ld, ld, kKeys,
                      k_chunk + u1 * qk_stride, qk_stride, min(kKeys, kend - u1),
@@ -367,24 +380,30 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
           cp_async_wait<0>();
         }
         __syncthreads();  // key tile t and its v are in shared memory
-        const uint32_t* kf = reinterpret_cast<const uint32_t*>(
-            k_s + buf * kKeys * ld + (skey + g) * ld);
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+        const __nv_bfloat16* kt = k_s + buf * kKeys * ld;
+        const uint32_t* kf0 = reinterpret_cast<const uint32_t*>(kt + (skey + g) * ld);
+        const uint32_t* kf1 = reinterpret_cast<const uint32_t*>(kt + (skey + 8 + g) * ld);
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 4
         for (int k0 = 0; k0 < dkp; k0 += 16) {
           const int c = (k0 >> 1) + tq;
-          mma_bf16(sc, qa[c], qb[c], qa[c + 4], qb[c + 4], kf[c], kf[c + 4]);
+          const uint32_t a0 = qa[c], a1 = qb[c], a2 = qa[c + 4], a3 = qb[c + 4];
+          mma_bf16(sc[0], a0, a1, a2, a3, kf0[c], kf0[c + 4]);
+          mma_bf16(sc[1], a0, a1, a2, a3, kf1[c], kf1[c + 4]);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = srow + g + (e >> 1) * 8;
-          const int key = skey + 2 * tq + (e & 1);
-          const int w = r0 + row;
-          const int u = u0 + key;
-          float p = 0.f;
-          if (key < nu && u <= w && w < W)
-            p = sc[e] * expf(cum_s[w] - cum_s[u] + li_s[u]);
-          p_s[row * kPLd + key] = p;
-        }
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = srow + g + (e >> 1) * 8;
+            const int key = skey + 8 * n + 2 * tq + (e & 1);
+            const int w = r0 + row;
+            const int u = u0 + key;
+            float p = 0.f;
+            if (key < nu && u <= w && w < W)
+              p = sc[n][e] * expf(cum_s[w] - cum_s[u] + li_s[u]);
+            p_s[row * kPLd + key] = p;
+          }
         __syncthreads();  // the score tile is complete
 #pragma unroll
         for (int uu = 0; uu < kKeys; uu += 4) {
@@ -394,15 +413,10 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
             p[m] = *reinterpret_cast<const float4*>(p_s + (yr0 + m) * kPLd + uu);
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
-            const float4 vv = *reinterpret_cast<const float4*>(vb + (uu + x) * CW + c0);
+            const float4 vv = *reinterpret_cast<const float4*>(vb + (uu + x) * CW + yc0);
 #pragma unroll
-            for (int m = 0; m < MR; ++m) {
-              const float pm = x == 0 ? p[m].x : x == 1 ? p[m].y : x == 2 ? p[m].z : p[m].w;
-              acc[m][0] = fmaf(pm, vv.x, acc[m][0]);
-              acc[m][1] = fmaf(pm, vv.y, acc[m][1]);
-              acc[m][2] = fmaf(pm, vv.z, acc[m][2]);
-              acc[m][3] = fmaf(pm, vv.w, acc[m][3]);
-            }
+            for (int m = 0; m < MR; ++m)
+              fma4(acc[m], x == 0 ? p[m].x : x == 1 ? p[m].y : x == 2 ? p[m].z : p[m].w, vv);
           }
         }
       }
@@ -413,18 +427,21 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
         __nv_bfloat16* yrow = y + ((size_t)(b * S + t0 + w) * H + h) * dv;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (col0 + c0 + c < dv) yrow[col0 + c0 + c] = __float2bfloat16(acc[m][c]);
+          if (col0 + yc0 + c < dv) yrow[col0 + yc0 + c] = __float2bfloat16(acc[m][c]);
       }
     }
 
     // ---- state update: S <- S * exp(tot) + k_scaled^T v over the chunk
-    float dacc[MI][4];
+    float dacc[MI][8];
 #pragma unroll
     for (int j = 0; j < MI; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dacc[j][c] = 0.f;
+      for (int c = 0; c < 8; ++c) dacc[j][c] = 0.f;
     const int nkt = (W + kKeys - 1) / kKeys;
-    __syncthreads();  // every read of q_s, k_s, v_s and of the old state is done
+    __syncthreads();  // every read of q_s, k_s, v_s, p_s and of the old state is done
+    float* ksc_s = p_s;  // exp(tot - cum + log_i) per key of the chunk
+    for (int w = tid; w < W; w += kThreads)
+      ksc_s[w] = expf(tot - cum_s[w] + li_s[w]);
     stage_rows(k_s, ld, kKeys, k_chunk, qk_stride, min(kKeys, W), dk, 0, nchunks, vec);
     cp_async_commit();
     load_v<CW>(vr, v_chunk, v_stride, min(kKeys, W), col0, dv);
@@ -432,9 +449,8 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
       const int buf = t & 1;
       const int u0 = t * kKeys;
       float* vb = v_s + buf * kKeys * CW;
-      store_v<CW>(vb, vr);
-      const bool more = t + 1 < nkt;
-      if (more) {
+      store_v(vb, vr);
+      if (t + 1 < nkt) {
         const int u1 = u0 + kKeys;
         stage_rows(k_s + (buf ^ 1) * kKeys * ld, ld, kKeys,
                    k_chunk + u1 * qk_stride, qk_stride, min(kKeys, W - u1), dk,
@@ -446,37 +462,43 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
       } else {
         cp_async_wait<0>();
       }
-      __syncthreads();  // key tile t and its v are in shared memory
-      // k_scaled = fp32(k * exp(tot - cum + log_i)), once per key tile
+      __syncthreads();  // key tile t, its v and the k scales are in shared memory
+      // k_scaled = fp32(k * exp(tot - cum + log_i)), once per key tile; rows
+      // past dk are zeros
       const __nv_bfloat16* kt = k_s + buf * kKeys * ld;
-      for (int idx = tid; idx < kKeys * (dkp >> 2); idx += kThreads) {
-        const int u = idx / (dkp >> 2), i = 4 * (idx % (dkp >> 2));
+      for (int idx = tid; idx < kKeys * (KSLD / 4); idx += kThreads) {
+        const int u = idx / (KSLD / 4), i = 4 * (idx % (KSLD / 4));
         const float sc = u0 + u < W ? ksc_s[u0 + u] : 0.f;
-        const uint2 raw = *reinterpret_cast<const uint2*>(kt + u * ld + i);
+        uint2 raw = make_uint2(0u, 0u);
+        if (i < dkp) raw = *reinterpret_cast<const uint2*>(kt + u * ld + i);
         float4 o;
         o.x = __uint_as_float(raw.x << 16) * sc;
         o.y = __uint_as_float(raw.x & 0xffff0000u) * sc;
         o.z = __uint_as_float(raw.y << 16) * sc;
         o.w = __uint_as_float(raw.y & 0xffff0000u) * sc;
-        *reinterpret_cast<float4*>(ks_s + u * dkp + i) = o;
+        *reinterpret_cast<float4*>(ks_s + u * KSLD + i) = o;
       }
       __syncthreads();  // k_scaled is complete
 #pragma unroll 2
       for (int u = 0; u < kKeys; ++u) {
-        const float4 vv = *reinterpret_cast<const float4*>(vb + u * CW + c0);
-        const float* kr = ks_s + u * dkp + i0;
+        const float4 v0 = *reinterpret_cast<const float4*>(vb + u * CW + uc0);
+        const float4 v1 = *reinterpret_cast<const float4*>(vb + u * CW + CW / 2 + uc0);
+        const float* kr = ks_s + u * KSLD + i0;
 #pragma unroll
         for (int j = 0; j < MI; j += 4) {
-          if (j < ipt && i0 + j < dkp) {
-            const float4 a = *reinterpret_cast<const float4*>(kr + j);
-            const float av[4] = {a.x, a.y, a.z, a.w};
+          const float4 a = *reinterpret_cast<const float4*>(kr + j);
+          const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              dacc[j + x][0] = fmaf(av[x], vv.x, dacc[j + x][0]);
-              dacc[j + x][1] = fmaf(av[x], vv.y, dacc[j + x][1]);
-              dacc[j + x][2] = fmaf(av[x], vv.z, dacc[j + x][2]);
-              dacc[j + x][3] = fmaf(av[x], vv.w, dacc[j + x][3]);
-            }
+          for (int x = 0; x < 4; ++x) {
+            float (&d)[8] = dacc[j + x];
+            d[0] = fmaf(av[x], v0.x, d[0]);
+            d[1] = fmaf(av[x], v0.y, d[1]);
+            d[2] = fmaf(av[x], v0.z, d[2]);
+            d[3] = fmaf(av[x], v0.w, d[3]);
+            d[4] = fmaf(av[x], v1.x, d[4]);
+            d[5] = fmaf(av[x], v1.y, d[5]);
+            d[6] = fmaf(av[x], v1.z, d[6]);
+            d[7] = fmaf(av[x], v1.w, d[7]);
           }
         }
       }
@@ -485,14 +507,17 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < MI; ++j) {
       const int i = i0 + j;
-      if (j < ipt && i < dkp) {
-        float4* sp = reinterpret_cast<float4*>(S_s + i * CW + c0);
-        float4 s = *sp;
-        s.x = s.x * decay + dacc[j][0];
-        s.y = s.y * decay + dacc[j][1];
-        s.z = s.z * decay + dacc[j][2];
-        s.w = s.w * decay + dacc[j][3];
-        *sp = s;
+      if (i < dkp) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float4* sp = reinterpret_cast<float4*>(S_s + i * CW + half * (CW / 2) + uc0);
+          float4 s = *sp;
+          s.x = s.x * decay + dacc[j][4 * half + 0];
+          s.y = s.y * decay + dacc[j][4 * half + 1];
+          s.z = s.z * decay + dacc[j][4 * half + 2];
+          s.w = s.w * decay + dacc[j][4 * half + 3];
+          *sp = s;
+        }
       }
     }
   }
@@ -504,19 +529,18 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int CW>
+template <int CW, int MI>
 int launch(const void* q, const void* k, const void* v, const void* log_f,
            const void* log_i, const void* state_in, void* y, void* state_out,
            int B, int S, int H, int dk, int dv, int W, int vec, size_t smem,
            cudaStream_t s) {
-  if (dk > Tile<CW>::kMaxDkHere) return (int)cudaErrorInvalidValue;
   // above 48 KB the kernel must be allowed the memory, once per instance
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_scan_kernel<CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel<CW, MI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((dv + CW - 1) / CW, H, B);
-  ssd_scan_kernel<CW><<<grid, kThreads, smem, s>>>(
+  ssd_scan_kernel<CW, MI><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(log_f),
       static_cast<const float*>(log_i), static_cast<const float*>(state_in),
@@ -548,10 +572,16 @@ extern "C" int ssd_scan_bf16(const void* q, const void* k, const void* v,
   const int vec = (dk % 8 == 0) && ((reinterpret_cast<uintptr_t>(q) |
                                      reinterpret_cast<uintptr_t>(k)) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cols) {
-    case 16: return launch<16>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
-    case 32: return launch<32>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
-    case 64: return launch<64>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, H, dk, dv, W, vec, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int mi = update_rows(dk, cols);
+#define SSD_LAUNCH(CW, MI)                                                     \
+  if (cols == CW && mi == MI)                                                  \
+    return launch<CW, MI>(q, k, v, log_f, log_i, state_in, y, state_out, B, S, \
+                          H, dk, dv, W, vec, smem, s);
+  SSD_LAUNCH(64, 12)
+  SSD_LAUNCH(64, 4)
+  SSD_LAUNCH(32, 8)
+  SSD_LAUNCH(32, 4)
+  SSD_LAUNCH(16, 4)
+#undef SSD_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,9 +12,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssd_scan.ref import check_chunk, ssd_scan_ref
-
-MAX_DK = 512
-MAX_CHUNK = 1024
+from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, MAX_DK, ssd_scan
 
 
 def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,8 +59,6 @@ def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"ssd_scan_op: the kernel takes 1 <= dk <= {MAX_DK} "
                          f"and chunk <= {MAX_CHUNK}; got dk={dk} dv={dv} "
                          f"chunk={W}")
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
-
     y = torch.empty((B, S, H, dv), dtype=v.dtype, device=q.device)
     state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
     if B and H:

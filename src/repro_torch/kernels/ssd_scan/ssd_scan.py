@@ -21,7 +21,7 @@ _I = ctypes.c_int
 SMS = 132                   # streaming multiprocessors of an H100 SXM
 THREADS = 256               # threads per block
 ROWS = 64                   # chunk rows per row tile
-KEYS = 16                   # chunk keys per key tile
+KEYS = 32                   # chunk keys per key tile
 MAX_DK = 512
 MAX_CHUNK = 1024
 MAX_BLOCK_SMEM = 232448     # a block's dynamic shared memory on sm_90
@@ -52,16 +52,30 @@ def cols_per_block(dk: int, dv: int) -> int:
     return 32 if dv <= 32 or dk > 384 else 64
 
 
+def update_rows(dk: int, cols: int) -> int:
+    """State rows each thread accumulates in the state update (8 columns a
+    thread, so THREADS / (cols / 8) row groups): 4 where that covers dk
+    padded to 16, else 12 at 64 columns (dk <= 384) or 8 below (dk <= 512).
+    The kernel has one instance per (cols, rows)."""
+    groups = THREADS // (cols // 8)
+    if 4 * groups >= -(-dk // 16) * 16:
+        return 4
+    return 12 if cols == 64 else 8
+
+
 def smem_bytes(dk: int, W: int, cols: int) -> int:
     """Dynamic shared memory of a block, as the kernel lays it out: the fp32
-    state tile, the bf16 q row tile (k_scaled reuses it in the state
-    update), two bf16 k key tiles, two fp32 v key tiles, the score tile and
-    three fp32 gate arrays of the chunk. q and k rows hold dk padded to 16
-    plus 8 bf16."""
+    state tile; the bf16 q row tile, whose room the fp32 k_scaled tile
+    (KEYS rows of every thread's update rows) takes in the state update;
+    two bf16 k key tiles; two fp32 v key tiles; the score tile; two fp32
+    gate arrays of the chunk. q and k rows hold dk padded to 16 plus 8
+    bf16."""
     dkp = -(-dk // 16) * 16
     ld = dkp + 8
-    return (dkp * cols * 4 + ROWS * ld * 2 + 2 * KEYS * ld * 2
-            + 2 * KEYS * cols * 4 + ROWS * (KEYS + 4) * 4 + 3 * W * 4)
+    k_scaled = KEYS * THREADS // (cols // 8) * update_rows(dk, cols) * 4
+    return (dkp * cols * 4 + max(ROWS * ld * 2, k_scaled)
+            + 2 * KEYS * ld * 2 + 2 * KEYS * cols * 4
+            + ROWS * (KEYS + 4) * 4 + 2 * W * 4)
 
 
 def geometry(B: int, H: int, dk: int, dv: int, W: int) -> Geometry:
