@@ -25,12 +25,12 @@
 //   TFLOP/s bf16 plus 0.084 ms at 67 TFLOP/s fp32, against 0.019 ms at 3.35
 //   TB/s. The fp32 products are fp32 in the reference, so they stay fp32
 //   FMAs on the CUDA cores (no TF32, no split operands) and are nearly all
-//   of the bound. Timing the previous design with one phase compiled out at
-//   a time showed that it lost most of its time staging operands, not in
-//   FMAs: without any fp32 column work (dv = 1) it still took 0.41 ms, since
-//   every 32-row tile re-staged every key tile up to the diagonal with
-//   plain synchronous copies, and each FMA came with its own shared loads
-//   and, in the state update, a multiply rebuilding k_scaled.
+//   of the bound. What a straightforward version loses its time on is
+//   staging, not FMAs (PERF.md §6, timed with one phase compiled out at a
+//   time): one that re-staged every key tile up to the diagonal for each
+//   32-row tile with plain synchronous copies took 0.41 ms at dv = 1, with
+//   almost no fp32 work, and each of its FMAs came with its own shared
+//   loads and, in the state update, a multiply rebuilding k_scaled.
 //
 // Design: the state is 576 KB per (b, h) at dk = dv = 384, more than a
 //   block's shared memory, so the grid splits the state columns: grid
@@ -38,29 +38,41 @@
 //   shared memory and walking the chunks in order. CW (16, 32 or 64) and the
 //   shared memory come from the Python side (`ssd_scan.py::geometry`) and are
 //   checked here: CW = 64 halves the blocks that recompute a chunk's q k^T
-//   against 32, CW = 16 keeps dv = 1 from idling 63 of 64 columns.
+//   and stage its keys, against 32; CW = 16 keeps dv = 1 from idling 63 of
+//   64 columns. The state tile arrives by cp.async while the gates load.
 //   Per chunk, 64 rows at a time (a row tile):
-//   - the q row tile is staged with cp.async in four commit groups, and the
-//     state read y = q.S starts on the first group while the rest land;
-//   - key tiles of 16 keys up to the diagonal follow, double-buffered: k by
-//     cp.async, v by register prefetch (converted to fp32 once, any dv and
-//     alignment), the next tile in flight while the current one is used;
-//   - each warp computes one 16 x 8 tile of q k^T with mma.sync, masked and
-//     decayed into a shared score tile, and P.V accumulates onto the state
-//     read's (scaled) sums.
+//   - the q row tile comes by cp.async in four commit groups, and the state
+//     read y = q.S starts on the first group while the rest land;
+//   - key tiles of 32 keys up to the diagonal follow, double-buffered: k by
+//     cp.async, v by register prefetch (converted to fp32 once, at any dv
+//     and alignment), the next tile in flight while the current one is used;
+//   - each warp computes a 16 x 16 tile of q k^T as two mma.sync tiles
+//     sharing their q fragments (two independent chains), masked and
+//     decayed into a shared score tile; P.V accumulates onto the state
+//     read's scaled sums.
 //   Then the state update streams the chunk's key tiles once more: k_scaled
 //   = fp32(k * exp(tot - cum + log_i)) is computed once per staged key tile
-//   into shared memory, and every thread accumulates its [rows x 4] share of
-//   k_scaled^T v in registers.
-//   All three fp32 products are register micro-tiles: a thread owns 4
-//   columns of MR rows of y (MR = 4 at CW = 64) or of up to 24 state rows,
-//   reads its operands with 16-byte shared loads (q as 8 bf16, S, P, v and
-//   k_scaled as 4 fp32), and every value loaded feeds MR or 4 FMAs (24 for
-//   v in the update). Rows padded to dk + 8 bf16 keep the mma fragment loads
-//   and the q reads free of bank conflicts. Any W <= 1024 dividing S,
-//   1 <= dk <= 512 and any dv work; ragged row, key, column and dk tiles
-//   are masked (zero-filled copies); dk % 8 != 0 or unaligned q, k stage
-//   with plain copies.
+//   into shared memory (in the q tile's room, rows padded with zeros), and
+//   every thread accumulates an MI x 8 share of k_scaled^T v in registers,
+//   MI a template parameter (12 at CW = 64, 8 at 32; 4 where that covers
+//   dk), so the inner loop has no bounds checks.
+//   All three fp32 products are register micro-tiles read with 16-byte
+//   shared loads: y as 4 columns of 4 rows a thread (at CW = 64; q as 8 bf16
+//   a load, S, P and v as 4 fp32), the update as 8 columns of 12 rows (12
+//   k_scaled and 8 v values feed 96 FMAs). Rows padded to dk + 8 bf16 keep
+//   the mma fragment loads and the q reads free of bank conflicts.
+//
+// What still holds it back (PERF.md §6): at the headline shape a block
+//   needs 226 KB of shared memory, so one block of 8 warps runs on an SM and
+//   the 224 blocks take 1.70 waves. With two warps per scheduler, each phase
+//   issues its FMAs at about a third of the card's fp32 rate: shared-load
+//   and mma latencies and the two barriers per key tile are exposed. A
+//   version with 8 x 8 tiles and the state read split four ways over dk
+//   (less shared traffic per FMA) was slower, so bandwidth is not the limit.
+//
+// Generality: any W <= 1024 dividing S, 1 <= dk <= 512 and any dv; ragged
+//   row, key, column and dk tiles are masked (zero-filled copies); dk % 8 !=
+//   0 or unaligned q, k stage with plain copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,6 +147,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes global -> shared, asynchronously; zero-filled where !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
@@ -148,21 +165,19 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, int nrows
                                            const __nv_bfloat16* __restrict__ src,
                                            size_t stride, int n, int dk,
                                            int c0, int c1, bool vec) {
-  const int nc = c1 - c0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (vec) {
     const int nv = dk >> 3;
-    for (int idx = threadIdx.x; idx < nrows * nc; idx += kThreads) {
-      const int r = idx / nc, c = c0 + idx % nc;
-      const bool ok = r < n && c < nv;
-      cp_async16(dst + r * ld + 8 * c, ok ? src + r * stride + 8 * c : src, ok);
-    }
+    for (int r = warp; r < nrows; r += kThreads / 32)
+      for (int c = c0 + lane; c < c1; c += 32) {
+        const bool ok = r < n && c < nv;
+        cp_async16(dst + r * ld + 8 * c, ok ? src + r * stride + 8 * c : src, ok);
+      }
   } else {
-    const int ne = 8 * nc;
-    for (int idx = threadIdx.x; idx < nrows * ne; idx += kThreads) {
-      const int r = idx / ne, i = 8 * c0 + idx % ne;
-      dst[r * ld + i] = (r < n && i < dk) ? src[r * stride + i]
-                                          : __float2bfloat16(0.f);
-    }
+    for (int r = warp; r < nrows; r += kThreads / 32)
+      for (int i = 8 * c0 + lane; i < 8 * c1; i += 32)
+        dst[r * ld + i] = (r < n && i < dk) ? src[r * stride + i]
+                                            : __float2bfloat16(0.f);
   }
 }
 
@@ -259,12 +274,27 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
   const int srow = (warp >> 1) * 16, skey = (warp & 1) * 16;
   const int g = lane >> 2, tq = lane & 3;
 
+  // the state tile, asynchronously (its own commit group, waited for with
+  // the first q piece): 16-byte copies where the rows allow, else 4-byte
   const size_t st_base = (size_t)(b * H + h) * dk * dv;
-  for (int idx = tid; idx < dkp * CW; idx += kThreads) {
-    const int i = idx / CW, c = col0 + idx % CW;
-    S_s[idx] = (state_in != nullptr && i < dk && c < dv)
-                   ? state_in[st_base + (size_t)i * dv + c] : 0.f;
+  if (state_in == nullptr) {
+    for (int idx = tid; idx < dkp * CW; idx += kThreads) S_s[idx] = 0.f;
+  } else if (dv % 4 == 0 && reinterpret_cast<uintptr_t>(state_in) % 16 == 0) {
+    for (int idx = tid; idx < dkp * CW / 4; idx += kThreads) {
+      const int i = idx / (CW / 4), c = 4 * (idx % (CW / 4));
+      const bool ok = i < dk && col0 + c < dv;
+      cp_async16(S_s + 4 * idx, ok ? state_in + st_base + (size_t)i * dv + col0 + c
+                                   : state_in, ok);
+    }
+  } else {
+    for (int idx = tid; idx < dkp * CW; idx += kThreads) {
+      const int i = idx / CW, c = idx % CW;
+      const bool ok = i < dk && col0 + c < dv;
+      cp_async4(S_s + idx, ok ? state_in + st_base + (size_t)i * dv + col0 + c
+                              : state_in, ok);
+    }
   }
+  cp_async_commit();
 
   const size_t qk_stride = (size_t)H * dk;
   const size_t v_stride = (size_t)H * dv;
