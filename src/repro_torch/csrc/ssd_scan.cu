@@ -64,11 +64,13 @@
 //
 // What still holds it back (PERF.md §6): at the headline shape a block
 //   needs 226 KB of shared memory, so one block of 8 warps runs on an SM and
-//   the 224 blocks take 1.70 waves. With two warps per scheduler, each phase
-//   issues its FMAs at about a third of the card's fp32 rate: shared-load
-//   and mma latencies and the two barriers per key tile are exposed. A
-//   version with 8 x 8 tiles and the state read split four ways over dk
-//   (less shared traffic per FMA) was slower, so bandwidth is not the limit.
+//   the 224 blocks take 1.70 waves (two rounds). Inside a block the three
+//   fp32 phases issue their FMAs at a little over half the card's fp32 rate,
+//   and about half of the block's time lies outside them: the mma chains,
+//   the staging and two barriers per key tile, and the per-block setup
+//   (state tile, gates, q tiles). A version with 8 x 8 tiles and the state
+//   read split four ways over dk (less shared traffic per FMA) was slower,
+//   so shared-memory bandwidth is not the limit; latency is.
 //
 // Generality: any W <= 1024 dividing S, 1 <= dk <= 512 and any dv; ragged
 //   row, key, column and dk tiles are masked (zero-filled copies); dk % 8 !=
