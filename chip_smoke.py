@@ -21,19 +21,31 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    every cluster size and warp count it takes;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
-   tokens, 32 new tokens each, greedy; the launch counts are set to 0 just
-   before and read just after, and each of its kernels' counts must rise;
-4. trace a B=8 prefill and four decode steps of a server with every slot
-   busy with ``torch.profiler``: device operations and device busy time per
-   prefill and per decode step;
-5. compare the card's prefill logits and 8 teacher-forced decode steps with
+   tokens, 32 new tokens each, greedy; the fused decode step runs eagerly
+   once and then replays from its CUDA graph (checked); the launch counts
+   are set to 0 just before and read just after, and each of its kernels'
+   counts must rise;
+4. with every slot busy: the host's split of one eager decode step
+   (``torch.profiler``'s CPU events: Python and wrapper checks, aten
+   dispatch, launch calls), then a B=8 prefill and four decode steps, eager
+   and replayed from the graph, traced: device operations and device busy
+   time per prefill and per decode step; ms per decode step, eager against
+   graph, in turns over the same steps (whose tokens must agree);
+5. streams in calibrated-simulation mode: the graphed step against the
+   eager one, greedy and at temperature 0.8 (seed 0), equal bit for bit;
+   ``fused=False`` (the reference per-slot loop) against the fused step,
+   equal, with 1 + active slots host syncs per step;
+6. compare the card's prefill logits and 8 teacher-forced decode steps with
    the same model on the CPU's plain path;
-6. the same three phases for full-width xlstm-125m (6 mLSTM/sLSTM pairs,
-   d_model 768, 4 heads of 384, fp32 gates): 16 requests, slots=8,
-   max_len=512, prompts of 8-480 tokens, 32 new tokens, greedy, with the
-   ssd_scan and rmsnorm counts rising; prefill time per rung; the profile;
-   logits and every decode-state leaf against the CPU's plain path;
-7. print the figures, the card's name and power limit, one ``kernels`` JSON
+7. run ``examples/quickstart_torch.py``'s ``main()`` on the card (full-width
+   smollm-360m, temperature 0.8): counts set to 0 before, and rising;
+8. phases 3-6 for full-width xlstm-125m (6 mLSTM/sLSTM pairs, d_model 768,
+   4 heads of 384, fp32 gates): 16 requests, slots=8, max_len=512, prompts
+   of 8-480 tokens, 32 new tokens, greedy, with the ssd_scan and rmsnorm
+   counts rising; prefill time per rung; the profile and timings; graph
+   against eager streams; logits and every decode-state leaf against the
+   CPU's plain path;
+9. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -488,7 +500,8 @@ def kernel_ops():
 def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5):
     """16 requests (prompts of 8..max_prompt tokens, 32 new tokens each,
     greedy) through ``LMServer`` with 8 slots; every count of ``kernels`` is
-    set to 0 just before the run and must have risen just after."""
+    set to 0 just before the run and must have risen just after. Then the
+    same requests with the fused step eager every step, for its tokens/s."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import LMServer
@@ -540,9 +553,28 @@ def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5):
     st = srv.stats
     if st["host_syncs_per_decode_step"] != 1.0:
         raise AssertionError(f"host syncs per decode step: {st}")
+    # the first step with these weights runs eagerly, every later one is a
+    # replay of the captured graph
+    if srv.graph_replays != st["decode_steps"] - 1:
+        raise AssertionError(f"{srv.graph_replays} graph replays in "
+                             f"{st['decode_steps']} decode steps")
     tokens = sum(len(r.tokens) for r in done)
+    # the same requests with the fused step run eagerly every step (the
+    # step as it ran before it was captured): tokens/s in the same call
+    eager = make_server()
+    _eager(eager)
+    for p in prompts:
+        eager.submit(p, max_new_tokens=32)
+    t0 = time.perf_counter()
+    eager.run(params)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    if sum(len(r.tokens) for r in eager.completed.values()) != tokens:
+        raise AssertionError("the eager run did not complete every request")
     return dict(launches=launches, wall_s=wall, tokens=tokens,
+                eager_tokens_per_s=tokens / eager_wall,
                 decode_steps=st["decode_steps"],
+                graph_replays=srv.graph_replays,
                 decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
                 tokens_per_s=tokens / wall,
                 prefill_dispatches=st["prefill_dispatches"],
@@ -577,18 +609,111 @@ def prefill_rungs(model, params, dev, *, max_len, rungs=None):
     return out
 
 
+def _union_us(intervals):
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def _busy_server(model, params, dev, *, max_len, max_prompt, slo, seed=3):
+    """A server with all 8 slots busy (64 new tokens each to come)."""
+    import numpy as np
+    from repro_torch.serving.engine import LMServer
+
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab_size
+    srv = LMServer(model, device=dev, slots=8, max_len=max_len, slo=slo,
+                   temperature=0.0, seed=0)
+    for n in rng.integers(8, max_prompt + 1, size=8):
+        srv.submit(rng.integers(0, vocab, size=int(n)), max_new_tokens=64)
+    for _ in range(8):                 # AIMD may admit fewer at a time
+        if len(srv._active) < 8:
+            srv._admit(params)
+    if len(srv._active) != 8:
+        raise AssertionError(f"server holds {len(srv._active)} requests, "
+                             f"not 8")
+    return srv
+
+
+def _eager(srv):
+    """Make ``srv`` run its fused step eagerly (the step its graph
+    captures); ``_graphed`` undoes it."""
+    srv._decode_device = lambda params: srv._decode_fused(
+        params, *srv._slot_state())
+
+
+def _graphed(srv):
+    srv.__dict__.pop("_decode_device", None)
+
+
+def host_split(srv, params):
+    """Where the host's time goes in one eager fused decode step, from
+    ``torch.profiler``'s CPU-side events: the step's wall time under the
+    profiler; the CUDA runtime and driver calls (kernel launches apart);
+    aten operators outside those calls (PyTorch dispatch and its CPU work);
+    and the rest: Python, the model code and the kernel wrappers' checks.
+    The profiler's own per-event cost lands in each part."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    _eager(srv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_step"):
+            packed = srv._decode_device(params)
+        torch.cuda.synchronize()
+    packed.cpu()
+    _graphed(srv)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    step = next(e for e in events if e.name == "decode_step")
+    lo, hi = step.time_range.start, step.time_range.end
+    inside = [e for e in events if e is not step
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+
+    def spans(pred):
+        return [(e.time_range.start, e.time_range.end) for e in inside
+                if pred(e.name)]
+
+    def runtime(n):
+        return n.startswith("cuda") or n.startswith("cu") and n[2:3].isupper()
+
+    def launch(n):
+        return runtime(n) and "Launch" in n
+
+    aten, calls = spans(lambda n: n.startswith("aten::")), spans(runtime)
+    wall = hi - lo
+    both = _union_us(aten + calls)
+    return dict(
+        wall_ms=wall / 1e3,
+        launch_calls=len(spans(launch)),
+        launch_ms=_union_us(spans(launch)) / 1e3,
+        other_runtime_ms=(_union_us(calls) - _union_us(spans(launch))) / 1e3,
+        aten_ms=(both - _union_us(calls)) / 1e3,
+        python_ms=(wall - both) / 1e3,
+        aten_ops=sum(1 for e in inside if e.name.startswith("aten::")
+                     and not (e.cpu_parent and e.cpu_parent.name.startswith(
+                         "aten::"))))
+
+
 def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
                    slo=0.5):
-    """A B=8 ladder-padded prefill at rung 256 and ``steps`` decode steps
-    of a server with all 8 slots busy, each under ``torch.profiler``:
-    device operations (kernels, copies) per prefill and per decode step, and
-    the device's busy time in each (the union of their intervals). None
-    where the trace holds no device events."""
+    """A B=8 ladder-padded prefill at rung 256, and ``steps`` decode steps
+    of a server with all 8 slots busy, eager and then replayed from the
+    CUDA graph, each under ``torch.profiler``: device operations (kernels,
+    copies) per prefill and per decode step, and the device's busy time in
+    each (the union of their intervals); before the capture, the host's
+    split of one eager step (``host_split``). A trace with no device
+    events gives None."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.engine import LMServer
 
     rng = np.random.default_rng(3)
     vocab = model.cfg.vocab_size
@@ -596,17 +721,8 @@ def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
                  0, vocab, size=(8, 256)).astype(np.int32)).to(dev),
              "lengths": torch.from_numpy(rng.integers(
                  129, 257, size=8).astype(np.int32)).to(dev)}
-    srv = LMServer(model, device=dev, slots=8, max_len=max_len, slo=slo,
-                   temperature=0.0, seed=0)
-    for n in rng.integers(8, max_prompt + 1, size=8):
-        srv.submit(rng.integers(0, vocab, size=int(n)),
-                   max_new_tokens=steps + 2)
-    for _ in range(8):                 # AIMD may admit fewer at a time
-        if len(srv._active) < 8:
-            srv._admit(params)
-    if len(srv._active) != 8:
-        raise AssertionError(f"profiled server holds {len(srv._active)} "
-                             f"requests, not 8")
+    srv = _busy_server(model, params, dev, max_len=max_len,
+                       max_prompt=max_prompt, slo=slo)
 
     def traced(fn, n):
         torch.cuda.synchronize()
@@ -618,19 +734,149 @@ def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
         ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not ops:
             return None
-        busy_us, end = 0.0, float("-inf")
-        for s, e in sorted((o.time_range.start, o.time_range.end)
-                           for o in ops):
-            if e > end:
-                busy_us += e - max(s, end)
-                end = e
+        busy_us = _union_us([(o.time_range.start, o.time_range.end)
+                             for o in ops])
         kernels = [o for o in ops if not o.name.startswith("Mem")]
         return dict(device_ops=len(ops) / n, kernels=len(kernels) / n,
                     busy_ms=busy_us / 1e3 / n)
 
+    split = host_split(srv, params)
+    _eager(srv)
+    eager = traced(srv._decode_once, steps)
+    _graphed(srv)
+    for _ in range(2):                 # the eager step, then the capture
+        srv._decode_once(params)
+    if srv.graph_replays != 1:
+        raise AssertionError("the profiled server did not capture its step")
     return dict(prefill=traced(lambda p: model.prefill(p, batch,
                                                        max_len=max_len), 1),
-                decode=traced(srv._decode_once, steps))
+                decode=traced(srv._decode_once, steps),
+                decode_eager=eager, host_split=split)
+
+
+def eager_vs_graph(model, params, dev, *, max_len, max_prompt, steps=16,
+                   slo=0.5):
+    """ms per decode step (host clock, each step ending in its packed host
+    copy) of one server with all 8 slots busy, its fused step eager and
+    replayed from the graph, in turns (eager, graph, graph, eager), each
+    turn from the same slot state; the greedy tokens of every turn must be
+    equal."""
+    import torch
+
+    srv = _busy_server(model, params, dev, max_len=max_len,
+                       max_prompt=max_prompt, slo=slo, seed=4)
+    for _ in range(2):                 # the eager step, then the capture
+        srv._decode_once(params)
+    state = list(_leaves(srv._slot_state()))
+    snap = [t.clone() for t in state]
+    ms, toks = {"eager": [], "graph": []}, []
+    for mode in ("eager", "graph", "graph", "eager"):
+        for t, s in zip(state, snap):
+            t.copy_(s)
+        (_eager if mode == "eager" else _graphed)(srv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            srv._decode_once(params)
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / steps)
+        toks.append([r.tokens[-steps:] for _, r in sorted(
+            srv._active.items())])
+    _graphed(srv)
+    if len(srv._active) != 8 or any(t != toks[0] for t in toks):
+        raise AssertionError("eager and graphed steps disagree")
+    return ms
+
+
+def token_parity(model, params, dev, *, max_len, max_prompt,
+                 reference=False):
+    """8 requests (prompts of 8..max_prompt tokens, 16 new tokens each)
+    through servers in calibrated-simulation mode (admission does not
+    depend on wall time): the graphed fused step against the eager one at
+    temperature 0 and at 0.8 (seed 0), streams equal bit for bit; with
+    ``reference``, also ``fused=False`` against the graphed fused step
+    (both with the reference loop's same-length prompt groups), streams
+    equal and 1 + active slots host syncs per step."""
+    import numpy as np
+    from repro_torch.core.metrics import VirtualClock
+    from repro_torch.serving.engine import LMServer
+
+    rng = np.random.default_rng(5)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, size=int(n))
+               for n in rng.integers(8, max_prompt + 1, size=8)]
+
+    def run(graph=True, **kw):
+        srv = LMServer(model, device=dev, slots=8, max_len=max_len, seed=0,
+                       clock=VirtualClock(),
+                       service_model=lambda kind, b, t: 1e-5 * (1 + b * t),
+                       **kw)
+        if not graph:
+            _eager(srv)
+        rids = [srv.submit(p, max_new_tokens=16) for p in prompts]
+        t0 = time.perf_counter()
+        srv.run(params)
+        wall = time.perf_counter() - t0
+        toks = [srv.completed[r].tokens for r in rids]
+        if any(len(t) != 16 for t in toks):
+            raise AssertionError("a request did not complete its 16 tokens")
+        if graph and kw.get("fused", True) and srv.graph_replays == 0:
+            raise AssertionError("the fused step never replayed its graph")
+        return toks, srv, wall
+
+    out = {}
+    for temp in (0.0, 0.8):
+        graphed, eager = (run(graph=g, temperature=temp)[0]
+                          for g in (True, False))
+        if graphed != eager:
+            raise AssertionError(f"graphed and eager streams differ at "
+                                 f"temperature {temp}")
+        out[f"graph_eq_eager_T{temp}"] = True
+    if reference:
+        fused, fsrv, fwall = run(temperature=0.0, pad_prompts=False)
+        ref, rsrv, rwall = run(temperature=0.0, fused=False)
+        if ref != fused:
+            raise AssertionError("fused=False streams differ from the fused "
+                                 "run's")
+        want = rsrv.decode_steps + sum(len(t) - 1 for t in ref)
+        if rsrv.decode_host_syncs != want:
+            raise AssertionError(f"fused=False: {rsrv.decode_host_syncs} "
+                                 f"host syncs, not 1 + active slots ({want})")
+        out.update(reference_eq_fused=True,
+                   reference_syncs_per_step=rsrv.stats[
+                       "host_syncs_per_decode_step"],
+                   reference_ms_per_step=1e3 * rwall / rsrv.decode_steps,
+                   fused_ms_per_step=1e3 * fwall / fsrv.decode_steps)
+    return out
+
+
+def run_quickstart(dev):
+    """``examples/quickstart_torch.py``'s ``main()`` on the card (full-width
+    smollm-360m, temperature 0.8); the launch counts are set to 0 just
+    before and read just after."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for op in kernel_ops().values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    srv = mod.main(["--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = {name: op.launches for name, op in kernel_ops().items()}
+    for name in ("rmsnorm", "decode_attention", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"quickstart: no {name} launch")
+    if (len(srv.completed) != 24
+            or any(len(r.tokens) != 24 for r in srv.completed.values())):
+        raise AssertionError("quickstart: not every request completed")
+    if (srv.stats["host_syncs_per_decode_step"] != 1.0
+            or srv.graph_replays != srv.decode_steps - 1):
+        raise AssertionError(f"quickstart: {srv.stats}, "
+                             f"{srv.graph_replays} graph replays")
+    return dict(launches=launches, wall_s=wall,
+                decode_steps=srv.decode_steps)
 
 
 def cpu_parity(cfg, params, dev, *, state=None):
@@ -697,10 +943,14 @@ def cpu_parity(cfg, params, dev, *, state=None):
     return out
 
 
-def report_path(label, run, rungs, prof, parity, per_prefill, per_step):
+def report_path(label, run, rungs, prof, parity, per_prefill, per_step,
+                timing, tokens):
     log(f"{label} serve: {run['tokens']} tokens in {run['wall_s']:.3f} s "
-        f"({run['tokens_per_s']:.1f} tok/s), {run['decode_steps']} decode "
-        f"steps at {run['decode_ms_per_step']:.3f} ms/step; "
+        f"({run['tokens_per_s']:.1f} tok/s; the same requests with every "
+        f"step eager {run['eager_tokens_per_s']:.1f} tok/s), "
+        f"{run['decode_steps']} decode "
+        f"steps ({run['graph_replays']} replayed from the CUDA graph) at "
+        f"{run['decode_ms_per_step']:.3f} ms/step; "
         f"{run['prefill_dispatches']} prefill dispatches, per rung "
         f"{run['rung_dispatches']}")
     launches = run["launches"]
@@ -713,22 +963,37 @@ def report_path(label, run, rungs, prof, parity, per_prefill, per_step):
         f"{launches['rmsnorm'] / (steps + prefills)}")
     log(f"{label} prefill ms per rung (B=8): "
         + ", ".join(f"{k}: {v:.3f}" for k, v in rungs.items()))
-    for what in ("prefill", "decode"):
+    e, g = timing["eager"], timing["graph"]
+    eager_ms, graph_ms_ = sum(e) / len(e), sum(g) / len(g)
+    log(f"{label} decode ms per step, 8 slots busy, same steps in turns "
+        f"(eager, graph, graph, eager): eager {e}, graph {g}; mean eager "
+        f"{eager_ms} ms, graph {graph_ms_} ms, eager / graph "
+        f"{eager_ms / graph_ms_}")
+    h = prof["host_split"]
+    log(f"{label} host split of one eager decode step under the profiler: "
+        f"wall {h['wall_ms']} ms; Python, model code and wrapper checks "
+        f"{h['python_ms']} ms; aten dispatch outside runtime calls "
+        f"{h['aten_ms']} ms ({h['aten_ops']} top-level aten ops); kernel "
+        f"launch calls {h['launch_ms']} ms ({h['launch_calls']} calls); "
+        f"other CUDA runtime calls {h['other_runtime_ms']} ms")
+    for what, where in (("prefill", "B=8 prefill at rung 256"),
+                        ("decode_eager", "eager decode step, 8 slots"),
+                        ("decode", "graphed decode step, 8 slots")):
         p = prof[what]
         if p is None:
-            log(f"{label} profiler, {what}: no device events in the trace "
+            log(f"{label} profiler, {where}: no device events in the trace "
                 f"(not measured)")
             continue
-        where = ("per decode step, 8 slots" if what == "decode" else
-                 "B=8 prefill at rung 256")
         log(f"{label} profiler, {where}: {p['device_ops']} device ops "
             f"({p['kernels']} kernels), device busy {p['busy_ms']} ms")
     for what, wall in (("decode", run["decode_ms_per_step"]),
+                       ("decode", graph_ms_), ("decode_eager", eager_ms),
                        ("prefill", rungs[256])):
         if prof[what] is not None:
             busy = prof[what]["busy_ms"]
             log(f"{label} {what}: device busy {busy} ms of {wall} ms "
                 f"unprofiled, idle share {1 - busy / wall}")
+    log(f"{label} streams, calibrated mode: {tokens}")
     log(f"{label} card vs CPU plain path: {parity}")
 
 
@@ -785,12 +1050,20 @@ def phases(dev):
                 max_prompt=200)
     rungs = prefill_rungs(model, params, dev, max_len=256)
     prof = device_profile(model, params, dev, max_len=256, max_prompt=200)
+    timing = eager_vs_graph(model, params, dev, max_len=256, max_prompt=200)
+    tokens = token_parity(model, params, dev, max_len=256, max_prompt=100,
+                          reference=True)
     parity = cpu_parity(cfg, params, dev)
     report_path(cfg.name, run, rungs, prof, parity,
                 per_prefill=("flash_attention",),
-                per_step=("decode_attention",))
+                per_step=("decode_attention",), timing=timing, tokens=tokens)
     log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
     del model, params
+
+    # the port's quickstart, as a user runs it on the card
+    qrun = run_quickstart(dev)
+    log(f"quickstart: {qrun['decode_steps']} decode steps in "
+        f"{qrun['wall_s']:.3f} s; launches {qrun['launches']}")
 
     # the ssm path: full-width xlstm-125m; prefill runs an eager sLSTM time
     # loop (seconds at rung 512), so the prefill budget of AIMD admission
@@ -809,9 +1082,13 @@ def phases(dev):
                            rungs=(8, 64, 256, 512))
     xprof = device_profile(xmodel, xparams, dev, max_len=512, max_prompt=480,
                            slo=60.0)
+    xtiming = eager_vs_graph(xmodel, xparams, dev, max_len=512,
+                             max_prompt=480, slo=60.0)
+    xtokens = token_parity(xmodel, xparams, dev, max_len=512, max_prompt=100)
     xparity = cpu_parity(xcfg, xparams, dev, state=_xlstm_state)
     report_path(xcfg.name, xrun, xrungs, xprof, xparity,
-                per_prefill=("ssd_scan",), per_step=())
+                per_prefill=("ssd_scan",), per_step=(), timing=xtiming,
+                tokens=xtokens)
     log(f"{xcfg.name} phases: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -819,7 +1096,8 @@ def phases(dev):
         r = rows[HEADLINE[kname]]
         route, source = SOURCES[kname]
         by_path = {cfg.name: run["launches"][kname],
-                   xcfg.name: xrun["launches"][kname]}
+                   xcfg.name: xrun["launches"][kname],
+                   "quickstart": qrun["launches"][kname]}
         kernels.append(dict(
             name=kname, route=route, source=source, replaces=REPLACES[kname],
             launches=sum(by_path.values()), launches_by_path=by_path,

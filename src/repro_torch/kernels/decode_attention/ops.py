@@ -10,10 +10,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import softmax_scale
+from repro_torch.kernels import counted, softmax_scale
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
+@counted
 def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
                         window: int = 0,
@@ -55,5 +56,3 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
         decode_attention_op.launches += 1
     return out.view(B, 1, Hq, D)
 
-
-decode_attention_op.launches = 0

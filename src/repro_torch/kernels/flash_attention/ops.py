@@ -10,12 +10,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import softmax_scale
+from repro_torch.kernels import counted, softmax_scale
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _HEAD_DIMS = (32, 64, 128)
 
 
+@counted
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0,
                        q_block: int = 512, k_block: int = 1024,
@@ -71,5 +72,3 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention_op.launches += 1
     return out
 
-
-flash_attention_op.launches = 0

@@ -10,11 +10,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
+@counted
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
                residual: Optional[torch.Tensor] = None):
     """x: [..., d]; w: [d] -> [..., d] in ``x.dtype``. With ``residual``
@@ -50,5 +52,3 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
         return out.view(x.shape)
     return out_sum.view(x.shape), out.view(x.shape)
 
-
-rmsnorm_op.launches = 0

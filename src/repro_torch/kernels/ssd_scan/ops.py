@@ -11,10 +11,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import counted
 from repro_torch.kernels.ssd_scan.ref import check_chunk, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, MAX_DK, ssd_scan
 
 
+@counted
 def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_f: torch.Tensor, log_i: torch.Tensor, *,
                 chunk: int = 256,
@@ -66,5 +68,3 @@ def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ssd_scan_op.launches += 1
     return y, state
 
-
-ssd_scan_op.launches = 0

@@ -1,8 +1,8 @@
 """LM serving engine: continuous batching with Clipper admission control.
 
-Port of the fused path of ``repro.serving.engine``. Requests (token prompts)
-enter an AIMD-governed admission queue (paper §4.3 applied to prefill);
-admitted prompts are padded up a geometric *length ladder*
+Port of ``repro.serving.engine``. Requests (token prompts) enter an
+AIMD-governed admission queue (paper §4.3 applied to prefill); admitted
+prompts are padded up a geometric *length ladder*
 (``core.batching.prompt_length_ladder``), prefilled together, and parked in
 decode *slots*; every engine step advances all slots by one token
 (continuous batching).
@@ -10,16 +10,32 @@ decode *slots*; every engine step advances all slots by one token
 Device-resident hot path: the slot state (the model's cache, a KV cache or
 a fixed-size recurrent state, lengths, current tokens, active / generated /
 max-new counters) is allocated once at construction and updated in place on
-the device; a model's ``decode_step`` writes the cache it is given. That is this engine's counterpart of the
-reference's jit buffer donation: decode never reallocates the cache, and
-admission writes a whole prefilled batch into it with one indexed copy per
-leaf. The fused decode step folds sampling, per-slot length advance,
-EOS / max-token / max-length done-masking and the next-token feedback into
-device work, so the host sees exactly one device-to-host copy per step, the
-packed ``[tokens ‖ done]``.
+the device; a model's ``decode_step`` writes the cache it is given. That is
+this engine's counterpart of the reference's jit buffer donation: decode
+never reallocates the cache, and admission writes a whole prefilled batch
+into it with one indexed copy per leaf. The fused decode step folds
+sampling, per-slot length advance, EOS / max-token / max-length
+done-masking and the next-token feedback into device work, so the host sees
+exactly one device-to-host copy per step, the packed ``[tokens ‖ done]``.
 
-Not ported yet: the reference's per-slot ``fused=False`` loop, sharding
-(one device here), and CUDA-graph capture of the decode step.
+On the card the fused step is the counterpart of the reference's one jitted
+program: the first step with a params tree runs eagerly (on a side stream,
+as PyTorch's capture rules ask; it compiles Triton and warms cuBLAS), the
+next captures the step once as a CUDA graph, and every later step replays
+it. The graph reads the slot state and the params at fixed addresses, so
+admission writes the slot state in place, and a step given another params
+tree starts over (eager, then a new capture). The server's sampling
+generator is registered with the graph, so each replay advances it as an
+eager step would. A capture or replay error raises: the card never runs
+the step eagerly in its place. The CPU has no graphs and runs the step
+eagerly, as the reference's jit runs on any backend.
+
+``fused=False`` is the reference's per-slot loop, kept as the parity and
+benchmark baseline: per-request cache scatter at admission, and per step
+the sampled tokens plus one device read per active slot on the host. It
+runs eagerly on either device.
+
+Not ported: sharding (one device here).
 
 Calibrated-simulation mode (``service_model`` + ``VirtualClock``) advances
 the clock by modeled time, so reports are byte-identical per seed."""
@@ -37,6 +53,7 @@ import torch
 from repro_torch.core import metrics as M
 from repro_torch.core.batching import AIMDController, bucket, prompt_length_ladder
 from repro_torch.core.metrics import MetricsRegistry
+from repro_torch.kernels import credit_launches, launch_counts
 from repro_torch.models.api import Model, resolve_device
 from repro_torch.serving.sampler import sample
 
@@ -97,6 +114,19 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
     return fused
 
 
+def make_decode_fn(model: Model, *, temperature: float,
+                   generator: Optional[torch.Generator] = None):
+    """The reference loop's decode step: ``(params, cache, tokens, lengths)
+    -> tokens`` [slots] int32, the cache updated in place; the host does the
+    rest."""
+
+    def decode(params, cache, tokens, lengths):
+        logits, _ = model.decode_step(params, cache, tokens, lengths)
+        return sample(logits, generator, temperature=temperature)
+
+    return decode
+
+
 def batched_scatter(cache: Any, pcache: Any, dst: torch.Tensor,
                     src: torch.Tensor) -> None:
     """Copy prefilled rows ``src`` of ``pcache`` into slots ``dst`` of the
@@ -126,6 +156,22 @@ def _admit_state(lengths, cur, active, gen, max_new, dst, src, vlens, firsts,
     max_new.index_copy_(0, dst, maxnews.index_select(0, src))
 
 
+def _scatter_cache(cache: Any, pcache: Any, src: int, dst: int) -> None:
+    """Copy request ``src`` of a prefill cache into slot ``dst``, in place
+    (the reference loop's per-request path; the fused engine uses
+    :func:`batched_scatter`)."""
+    if isinstance(cache, dict):
+        for name, leaf in cache.items():
+            _scatter_cache(leaf, pcache[name], src, dst)
+    elif isinstance(cache, (tuple, list)):
+        for leaf, pleaf in zip(cache, pcache, strict=True):
+            _scatter_cache(leaf, pleaf, src, dst)
+    elif cache.dim() == 1:                  # lengths [B]
+        cache[dst] = pcache[src]
+    else:                                   # layer-stacked [L, B, ...]
+        cache[:, dst] = pcache[:, src].to(cache.dtype)
+
+
 class LMServer:
     """Continuous-batching server for one Model, on the model's device."""
 
@@ -136,7 +182,7 @@ class LMServer:
                  metrics: Optional[MetricsRegistry] = None,
                  service_model: Optional[ServiceModel] = None,
                  model_id: str = "lm", admission_control=None,
-                 prefill_slo_frac: float = 0.5,
+                 fused: bool = True, prefill_slo_frac: float = 0.5,
                  pad_prompts: Optional[bool] = None,
                  on_finish: Optional[Callable[["Request"], None]] = None,
                  tracer=None, faults=None, audit=None):
@@ -175,8 +221,11 @@ class LMServer:
         self.prefill_slo_frac = prefill_slo_frac
         self.admission = AIMDController(slo * prefill_slo_frac, additive=1,
                                         init=1, max_batch=slots)
+        self.fused = fused
+        # the length ladder is the fused path's; the reference loop groups
+        # prompts of one length, as the reference's does
         if pad_prompts is None:
-            pad_prompts = bool(model.extras.get("prompt_pad"))
+            pad_prompts = fused and bool(model.extras.get("prompt_pad"))
         self.pad_prompts = pad_prompts
         self._pad_cap = min(max_len,
                             int(model.extras.get("prompt_pad_cap", max_len)))
@@ -202,9 +251,21 @@ class LMServer:
         self.active_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self.gen_counts = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.max_new = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self._decode_fused = make_fused_decode_fn(
-            model, temperature=temperature, eos=eos_token, max_len=max_len,
-            generator=self.generator)
+        if fused:
+            self._decode_fused = make_fused_decode_fn(
+                model, temperature=temperature, eos=eos_token,
+                max_len=max_len, generator=self.generator)
+        else:
+            self._decode = make_decode_fn(model, temperature=temperature,
+                                          generator=self.generator)
+        # the fused step's CUDA graph (card only): the params tree it reads
+        # (or that the eager step before its capture ran with), the graph,
+        # its packed output, and its kernel launches per replay
+        self._graph_params: Any = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_out: Optional[torch.Tensor] = None
+        self._graph_launches: Dict[Callable, int] = {}
+        self.graph_replays = 0
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -320,8 +381,10 @@ class LMServer:
             vlens[i] = L
         t0 = self.clock()
         logits, pcache = self._prefill(params, toks, vlens, padded)
-        first = sample(logits, self.generator, temperature=self.temperature)
-        first_np = first.cpu().numpy()      # waits for the prefill to finish
+        if self.device.type == "cuda":
+            # the reference's block_until_ready(logits): the service time
+            # ends with the prefill, before the first token is sampled
+            torch.cuda.synchronize(self.device)
         self.prefill_dispatches += 1
         self.rung_dispatches[int(plen)] = (
             self.rung_dispatches.get(int(plen), 0) + 1)
@@ -342,6 +405,20 @@ class LMServer:
                         r.trace, "prefill", "lm.prefill", t0, t0 + dt,
                         budget_s=self.slo * self.prefill_slo_frac,
                         attrs={"batch": n, "padded_len": int(plen)})
+        first = sample(logits, self.generator, temperature=self.temperature)
+        first_np = first.cpu().numpy()
+        if not self.fused:
+            # reference loop: per-request scatter, per-slot state writes
+            for i, r in enumerate(batch):
+                s = free[i]
+                r.slot = s
+                r.prefill_time = dt
+                r.tokens.append(int(first_np[i]))
+                self._active[s] = r
+                _scatter_cache(self.cache, pcache, i, s)
+                self.lengths[s] = int(vlens[i])
+                self.cur_tokens[s, 0] = int(first_np[i])
+            return
         maxnews = np.zeros((nb,), np.int32)
         for i, r in enumerate(batch):
             s = free[i]
@@ -362,10 +439,60 @@ class LMServer:
     def _decode_once(self, params) -> None:
         if not self._active:
             return
+        if self.fused:
+            self._decode_once_fused(params)
+        else:
+            self._decode_once_reference(params)
+
+    def _slot_state(self):
+        """The fused step's arguments after ``params``: the slot state."""
+        return (self.cache, self.lengths, self.cur_tokens, self.active_mask,
+                self.gen_counts, self.max_new)
+
+    def _decode_device(self, params) -> torch.Tensor:
+        """Run the fused step on the device; returns the packed ``[tokens ‖
+        done]``. CPU: eager. Card: the first step with a params tree eager
+        on a side stream, the next captured as a CUDA graph, then replays
+        (checked by the params object's identity, once a step)."""
+        if self.device.type != "cuda":
+            return self._decode_fused(params, *self._slot_state())
+        if params is not self._graph_params:
+            self._graph = self._graph_out = None
+            self._graph_params = params
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                packed = self._decode_fused(params, *self._slot_state())
+            main.wait_stream(side)
+            return packed
+        if self._graph is None:
+            self._capture(params)
+        self._graph.replay()
+        credit_launches(self._graph_launches)
+        self.graph_replays += 1
+        return self._graph_out
+
+    def _capture(self, params) -> None:
+        """Capture the fused step. Capture runs nothing: the wrappers'
+        counts of the capture are taken back here and credited per replay."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._decode_fused(params, *self._slot_state())
+        finally:
+            per_replay = {w: n - before[w]
+                          for w, n in launch_counts().items()
+                          if n != before[w]}
+            credit_launches({w: -n for w, n in per_replay.items()})
+        self._graph, self._graph_out = graph, out
+        self._graph_launches = per_replay
+
+    def _decode_once_fused(self, params) -> None:
         t0 = self.clock()
-        packed = self._decode_fused(
-            params, self.cache, self.lengths, self.cur_tokens,
-            self.active_mask, self.gen_counts, self.max_new)
+        packed = self._decode_device(params)
         out = packed.cpu().numpy()          # the ONE host transfer per step
         self.decode_host_syncs += 1
         toks, done = out[:self.slots], out[self.slots:].astype(bool)
@@ -377,6 +504,32 @@ class LMServer:
         for s, r in list(self._active.items()):
             r.tokens.append(int(toks[s]))
             if done[s]:
+                self._finish(s, r)
+
+    def _decode_once_reference(self, params) -> None:
+        """The reference's per-slot loop, kept as the parity and benchmark
+        baseline: the sampled tokens to the host, then per active slot a
+        token write and a length read (the O(slots) host round trips the
+        fused step removes)."""
+        t0 = self.clock()
+        toks = self._decode(params, self.cache, self.cur_tokens,
+                            self.lengths).cpu().numpy()
+        self.decode_host_syncs += 1
+        n_active = len(self._active)
+        dt = self._service_time("decode", self.slots, 1, t0)
+        self._observe_batch(n_active, dt)
+        self.decode_steps += 1
+        self.lengths += torch.tensor(
+            [1 if s in self._active else 0 for s in range(self.slots)],
+            dtype=torch.int32, device=self.device)
+        for s, r in list(self._active.items()):
+            t = int(toks[s])
+            r.tokens.append(t)
+            self.cur_tokens[s, 0] = t
+            cur_len = int(self.lengths[s])
+            self.decode_host_syncs += 1     # per-slot device read
+            if (t == self.eos or len(r.tokens) >= r.max_new_tokens
+                    or cur_len >= self.max_len - 1):
                 self._finish(s, r)
 
     def _finish(self, s: int, r: Request) -> None:
@@ -485,10 +638,11 @@ class LMServer:
 
     def engine_report(self) -> Dict[str, Any]:
         """Engine-level counters: prefill shapes dispatched, how chatty the
-        decode loop is with the host, and which attention implementation
-        ran (``"plain"`` PyTorch on the CPU, ``"kernels"`` on the card)."""
+        decode loop is with the host, which attention implementation ran
+        (``"plain"`` PyTorch on the CPU, ``"kernels"`` on the card), and
+        whether the fused step replayed as a CUDA graph."""
         return {
-            "fused": True,
+            "fused": self.fused,
             "attention_backend": ("kernels" if self.device.type == "cuda"
                                   else "plain"),
             "prefill": {
@@ -505,6 +659,7 @@ class LMServer:
                 "host_syncs_per_step": (
                     self.decode_host_syncs / self.decode_steps
                     if self.decode_steps else 0.0),
+                "graph": self.graph_replays > 0,
             },
         }
 

@@ -1,4 +1,6 @@
-"""The port's kernels on the card, each against its plain PyTorch version.
+"""The port's kernels on the card, each against its plain PyTorch version,
+and ``LMServer`` on the card: its fused decode step replayed from a CUDA
+graph against the same step run eagerly.
 
 Marked ``cuda``: where ``torch.cuda.is_available()`` is false each test
 skips with that reason. The file imports no JAX, so it runs on a machine
@@ -378,3 +380,159 @@ def test_xlstm_lmserver_on_card(dev):
     assert all(len(srv.completed[r].tokens) == 6 for r in rids)
     assert all(op.launches > b for op, b in zip(ops, before))
     assert srv.stats["host_syncs_per_decode_step"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the fused decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _small_model(kind, dev):
+    """A reduced dense model (G = 2, D = 32: shapes every kernel takes) or
+    reduced xlstm (chunk 8), with seeded weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHITECTURES, reduced_config
+    from repro_torch.models.api import build_model
+
+    if kind == "dense":
+        cfg = dataclasses.replace(
+            reduced_config(ARCHITECTURES["smollm-360m"]), num_heads=4,
+            num_kv_heads=2, head_dim=32, d_model=128, d_ff=256)
+        model = build_model(cfg, device=dev)
+    else:
+        model = build_model(reduced_config(ARCHITECTURES["xlstm-125m"]),
+                            device=dev, chunk=8)
+    return model
+
+
+def _params(model, seed):
+    return model.init(torch.Generator(device=model.device).manual_seed(seed))
+
+
+def _server(model, *, graph, temperature=0.0, seed=0):
+    """An LMServer in calibrated-simulation mode (admission decisions do
+    not depend on wall time). ``graph=False`` runs every fused step
+    eagerly, the step the graph captures."""
+    from repro_torch.core.metrics import VirtualClock
+    from repro_torch.serving.engine import LMServer
+
+    srv = LMServer(model, device=model.device, slots=4, max_len=64,
+                   temperature=temperature, seed=seed, clock=VirtualClock(),
+                   service_model=lambda kind, b, t: 1e-3 * (1 + b * t))
+    if not graph:
+        srv._decode_device = lambda params: srv._decode_fused(
+            params, *srv._slot_state())
+    return srv
+
+
+def _serve(srv, params, prompts_seed=0, n=6, max_new=8):
+    """Submit ``n`` prompts of 3-30 tokens and run; returns the streams and
+    each kernel wrapper's launches during the run."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(prompts_seed)
+    vocab = srv.model.cfg.vocab_size
+    rids = [srv.submit(rng.integers(0, vocab, size=int(k)),
+                       max_new_tokens=max_new)
+            for k in rng.integers(3, 31, size=n)]
+    before = launch_counts()
+    srv.run(params)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(len(srv.completed[r].tokens) == max_new for r in rids)
+    return ([srv.completed[r].tokens for r in rids],
+            {w.__name__: after[w] - before[w] for w in after})
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("kind", ["dense", "xlstm"])
+def test_graphed_decode_matches_eager(dev, kind, temperature):
+    """The same requests through a server whose fused step replays as a
+    CUDA graph and through one that runs it eagerly: the same kernels on
+    the same inputs in the same order, and at temperature 0.8 the same
+    generator draws (registered with the graph, advanced per replay), so
+    the streams are equal bit for bit; the kernel launch counts are equal
+    and one host copy is made per step."""
+    model = _small_model(kind, dev)
+    params = _params(model, 0)
+    runs = []
+    for graph in (True, False):
+        srv = _server(model, graph=graph, temperature=temperature)
+        runs.append(_serve(srv, params) + (srv,))
+    (g_toks, g_launch, g_srv), (e_toks, e_launch, e_srv) = runs
+    assert g_srv.graph_replays > 0 and g_srv.engine_report()["decode"]["graph"]
+    assert e_srv.graph_replays == 0
+    assert g_srv.decode_steps == e_srv.decode_steps
+    assert g_toks == e_toks
+    assert g_launch == e_launch
+    assert g_srv.stats["host_syncs_per_decode_step"] == 1.0
+
+
+def test_graph_launch_counts_equal_eager(dev):
+    """Each kernel's count rises by the same amount with and without the
+    graph: the capture's counts are taken back and each replay credits the
+    kernels it launches."""
+    model = _small_model("dense", dev)
+    params = _params(model, 0)
+    (_, g_launch), (_, e_launch) = (
+        _serve(_server(model, graph=graph), params, n=8, max_new=12)
+        for graph in (True, False))
+    assert g_launch == e_launch
+    for name in ("rmsnorm_op", "decode_attention_op", "flash_attention_op"):
+        assert g_launch[name] > 0, name
+
+
+def test_new_params_tree_recaptures(dev):
+    """A run with another params tree must not replay the graph that reads
+    the old weights: the server starts over (eager, then a new capture),
+    and every stream equals the eager server's on the same sequence."""
+    model = _small_model("dense", dev)
+    p0, p1 = _params(model, 0), _params(model, 1)
+    streams = []
+    for graph in (True, False):
+        srv = _server(model, graph=graph)
+        first = _serve(srv, p0, prompts_seed=0)[0]
+        g0 = srv._graph
+        second = _serve(srv, p1, prompts_seed=1)[0]
+        if graph:
+            assert g0 is not None and srv._graph is not None
+            assert srv._graph is not g0
+            assert srv._graph_params is p1
+        streams.append((first, second))
+    assert streams[0] == streams[1]
+
+
+def test_capture_error_raises_without_eager_fallback(dev):
+    """An error while the step is captured propagates; the next step tries
+    the capture again and raises again: no step runs eagerly in its place,
+    and the failed capture leaves the launch counts as they were."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+
+    model = _small_model("dense", dev)
+    params = _params(model, 0)
+    srv = _server(model, graph=True)
+    fused = srv._decode_fused
+
+    def refuse_capture(*args):
+        out = fused(*args)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused during capture")
+        return out
+
+    srv._decode_fused = refuse_capture
+    rng = np.random.default_rng(0)
+    srv.submit(rng.integers(0, model.cfg.vocab_size, size=9),
+               max_new_tokens=8)
+    srv.step(params)                        # admission and the eager step
+    assert srv.decode_steps == 1
+    for _ in range(2):
+        before = launch_counts()
+        with pytest.raises(RuntimeError, match="refused during capture"):
+            srv.step(params)
+        assert launch_counts() == before
+        assert srv.decode_steps == 1 and srv.graph_replays == 0
+        assert srv._graph is None

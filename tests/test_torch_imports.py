@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (and
 ``chip_smoke.py``) loads neither ``jax`` nor the ``repro`` package, no
-source line imports them, and ``chip_smoke.py`` refuses to run without a
-card or outside the repository."""
+source line of them or of ``examples/quickstart_torch.py`` imports them,
+and ``chip_smoke.py`` refuses to run without a card or outside the
+repository."""
 
 import ast
 import os
@@ -43,7 +44,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_no_source_line_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -3,7 +3,10 @@
 Same bridged weights, same prompts, calibrated-simulation mode
 (VirtualClock + service model, temperature 0): the greedy token streams
 must be identical, the ``repro.metrics/v1`` report byte-identical, and each
-decode step must make exactly one device-to-host copy."""
+fused decode step must make exactly one device-to-host copy; the same for
+the reference per-slot loop (``fused=False``), whose steps make one copy
+plus one per active slot. In wall-clock mode the prefill's service time
+ends before the first token is sampled, in both engines."""
 
 import json
 
@@ -92,6 +95,25 @@ def test_greedy_streams_identical(monkeypatch, name, seed):
     first step whose two best JAX logits lie within one bf16 ulp: there a
     one-ulp difference from the libraries' fp32 summation orders may pick
     the other token (ROADMAP.md §C). A divergence anywhere else fails."""
+    assert_greedy_streams_match(monkeypatch, name, seed, fused=True)
+
+
+@pytest.mark.parametrize("seed", [11, 12, 17])
+@pytest.mark.parametrize("name", ["g2", "g3", "x8"])
+def test_reference_loop_greedy_streams_identical(monkeypatch, name, seed):
+    """``fused=False``, the reference's per-slot loop, in both engines: the
+    same streams under the same one-ulp tie rule, the same stats (host syncs
+    included), and per decode step one host copy plus one per active
+    slot."""
+    jsrv, tsrv = assert_greedy_streams_match(monkeypatch, name, seed,
+                                             fused=False)
+    assert tsrv.engine_report()["fused"] is False
+    assert tsrv.stats == jsrv.stats
+    assert tsrv.decode_host_syncs == tsrv.decode_steps + sum(
+        len(r.tokens) - 1 for r in tsrv.completed.values())
+
+
+def assert_greedy_streams_match(monkeypatch, name, seed, *, fused):
     import jax
     from repro.serving import engine as jax_engine
     from repro_torch.serving import engine as torch_engine
@@ -100,9 +122,14 @@ def test_greedy_streams_identical(monkeypatch, name, seed):
     rng = np.random.default_rng(seed)
     vocab = tm.cfg.vocab_size
     # mixed prompt lengths: several ladder rungs, ragged kv_valid
-    prompts = [rng.integers(0, vocab, size=int(n))
-               for n in rng.integers(3, 40, size=9)]
-    jsrv, tsrv = _servers(jm, tm, slots=4, max_len=MAX_LEN, temperature=0.0)
+    lengths = rng.integers(3, 40, size=9)
+    if not fused and name == "x8":
+        # the reference loop prefills prompts unpadded, and both engines'
+        # chunked scan takes only whole chunks of 8 there
+        lengths = -(-lengths // 8) * 8
+    prompts = [rng.integers(0, vocab, size=int(n)) for n in lengths]
+    jsrv, tsrv = _servers(jm, tm, slots=4, max_len=MAX_LEN, temperature=0.0,
+                          fused=fused)
     logits = [
         _record_logits(
             monkeypatch, jsrv, jax_engine,
@@ -135,6 +162,7 @@ def test_greedy_streams_identical(monkeypatch, name, seed):
             f"bf16 near-tie")
     assert tsrv.rung_dispatches == jsrv.rung_dispatches
     assert len(tsrv.rung_dispatches) > 1
+    return jsrv, tsrv
 
 
 def _drive(srv, clock, params, pending, max_new_tokens):
@@ -156,10 +184,31 @@ def test_calibrated_report_byte_identical():
     (reduced smollm, VirtualClock, service model, temperature 0), run by
     both engines on the same weights and arrivals. The reports agree byte
     for byte except ``engine.attention_backend``, which names the
-    implementation that ran (``"jnp"`` there, ``"plain"`` here)."""
+    implementation that ran (``"jnp"`` there, ``"plain"`` here), and the
+    port's ``engine.decode.graph`` (no CUDA graph on the CPU)."""
+    assert_scenario_reports_match(fused=True)
+
+
+def test_reference_loop_calibrated_report_byte_identical():
+    """The same scenario through ``fused=False`` in both engines: the
+    reports (``"fused": false``, one host sync per step plus one per active
+    slot, same-length prefill groups) agree byte for byte but the two
+    fields above."""
+    jrep = assert_scenario_reports_match(fused=False)
+    assert jrep["engine"]["fused"] is False
+    assert jrep["engine"]["decode"]["host_syncs_per_step"] > 1.0
+
+
+def assert_scenario_reports_match(*, fused):
     sc = SCENARIOS["poisson"]
     runner = ScenarioRunner(sc)
     jsrv, jclock, jparams, pending = runner.build_lmserver()
+    if not fused:
+        jsrv = JLMServer(jsrv.model, jsrv.mesh, jsrv.rules, slots=sc.slots,
+                         max_len=64, slo=sc.slo, temperature=0.0,
+                         seed=sc.seed, clock=jclock,
+                         service_model=jsrv.service_model,
+                         model_id=jsrv.model_id, fused=False)
     cfg = t_reduced_config(T_ARCHITECTURES["smollm-360m"], num_layers=2,
                            d_model=64)
     tm = build_model(cfg, device="cpu")
@@ -174,24 +223,90 @@ def test_calibrated_report_byte_identical():
 
     tsrv = LMServer(tm, device="cpu", slots=sc.slots, max_len=64,
                     slo=sc.slo, temperature=0.0, seed=sc.seed, clock=tclock,
-                    service_model=service_model, model_id=cfg.name)
+                    service_model=service_model, model_id=cfg.name,
+                    fused=fused)
     _drive(jsrv, jclock, jparams, pending, sc.max_new_tokens)
     _drive(tsrv, tclock, tp, pending, sc.max_new_tokens)
-    assert_reports_match(jsrv, tsrv)
+    return assert_reports_match(jsrv, tsrv)
 
 
 def assert_reports_match(jsrv, tsrv):
     """Same stats, the same report byte for byte but the backend name
-    (``"jnp"`` there, ``"plain"`` here), the same tokens per request."""
+    (``"jnp"`` there, ``"plain"`` here) and the port's graph flag (false on
+    the CPU), the same tokens per request. Returns the JAX report."""
     assert jsrv.stats == tsrv.stats
     jrep = jsrv.report()
+    trep = tsrv.report()
     assert jrep["engine"]["attention_backend"] == "jnp"
-    assert tsrv.report()["engine"]["attention_backend"] == "plain"
+    assert trep["engine"]["attention_backend"] == "plain"
+    assert trep["engine"]["decode"].pop("graph") is False
     jrep["engine"]["attention_backend"] = "plain"
     assert (json.dumps(jrep, sort_keys=True, indent=2)
-            == tsrv.report_json())
+            == json.dumps(trep, sort_keys=True, indent=2))
     for rid, r in jsrv.completed.items():
         assert tsrv.completed[rid].tokens == r.tokens
+    return jrep
+
+
+def test_prefill_service_time_excludes_the_first_token_sample(monkeypatch):
+    """Wall-clock mode (no service model) with a clock that moves only
+    while a prefill's first token is sampled, by more than the prefill's
+    AIMD budget: the JAX engine ends the prefill's service time before it
+    samples, so the sample is charged to no prefill. The port must agree:
+    the same ``prefill_time`` per request (0), the same AIMD state, the
+    same queue and prefill spans, the same streams."""
+    from repro.obs.tracer import Tracer
+    from repro.serving import engine as jax_engine
+    from repro_torch.serving import engine as torch_engine
+
+    jm, jp, tm, tp = build_pair("g3")
+    mesh, rules = mesh_rules()
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, size=int(n))
+               for n in rng.integers(3, 40, size=9)]
+    runs = []
+    for module, make, params in (
+            (jax_engine, lambda **kw: JLMServer(jm, mesh, rules, **kw), jp),
+            (torch_engine, lambda **kw: LMServer(tm, device="cpu", **kw),
+             tp)):
+        clock, tracer = TVirtualClock(), Tracer()
+        srv = make(slots=4, max_len=MAX_LEN, slo=0.5, temperature=0.0,
+                   clock=clock, tracer=tracer)
+        admitting = []
+        sample_fn = module.sample
+
+        def slow_sample(logits, key, _sample=sample_fn, _clock=clock,
+                        _admitting=admitting, **kw):
+            if _admitting:
+                _clock.advance(0.3)        # > slo * prefill_slo_frac
+            return _sample(logits, key, **kw)
+
+        def admit(params, _admit=srv._admit, _admitting=admitting):
+            _admitting.append(True)
+            try:
+                _admit(params)
+            finally:
+                _admitting.clear()
+
+        monkeypatch.setattr(module, "sample", slow_sample)
+        monkeypatch.setattr(srv, "_admit", admit)
+        rids = [srv.submit(p, max_new_tokens=6) for p in prompts]
+        srv.run(params)
+        spans = [sp.to_dict() for sp in tracer.spans()
+                 if sp.name in ("queue", "prefill")]
+        runs.append(dict(
+            prefill_time=[srv.completed[r].prefill_time for r in rids],
+            aimd=(srv.admission._max, srv.admission.max_batch_size),
+            spans=spans, stats=srv.stats,
+            tokens=[srv.completed[r].tokens for r in rids]))
+    jrun, trun = runs
+    assert jrun["prefill_time"] == [0.0] * len(prompts)
+    assert trun["prefill_time"] == jrun["prefill_time"]
+    assert trun["aimd"] == jrun["aimd"]
+    assert len(jrun["spans"]) == 2 * len(prompts)
+    assert trun["spans"] == jrun["spans"]
+    assert trun["stats"] == jrun["stats"]
+    assert trun["tokens"] == jrun["tokens"]
 
 
 _SYNCING = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
