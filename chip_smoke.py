@@ -653,7 +653,7 @@ def _graphed(srv):
 def host_split(srv, params):
     """Where the host's time goes in one eager fused decode step, from
     ``torch.profiler``'s CPU-side events: the step's wall time under the
-    profiler; the CUDA runtime and driver calls (kernel launches apart);
+    profiler; the CUDA API calls (kernel launches apart);
     aten operators outside those calls (PyTorch dispatch and its CPU work);
     and the rest: Python, the model code and the kernel wrappers' checks.
     The profiler's own per-event cost lands in each part."""

@@ -55,4 +55,3 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                          window=window, scale=softmax_scale(scale, D))
         decode_attention_op.launches += 1
     return out.view(B, 1, Hq, D)
-

@@ -71,4 +71,3 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale=softmax_scale(scale, D))
         flash_attention_op.launches += 1
     return out
-

@@ -51,4 +51,3 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
     if residual is None:
         return out.view(x.shape)
     return out_sum.view(x.shape), out.view(x.shape)
-

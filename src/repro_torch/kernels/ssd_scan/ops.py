@@ -67,4 +67,3 @@ def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ssd_scan(q, k, v, log_f, log_i, initial_state, y, state, chunk=W)
         ssd_scan_op.launches += 1
     return y, state
-
