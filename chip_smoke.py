@@ -18,7 +18,21 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    headline shapes, each attention kernel's time over the library call's;
    print each ssd_scan case's geometry (state columns a block, grid, blocks
    per SM, waves) and its time over its bound; time decode attention at
-   every cluster size and warp count it takes;
+   every cluster size and warp count it takes; the same for the scenario
+   model's shapes (head_dim 16: flash at S up to 64, ragged; decode at
+   Smax=64; RMSNorm at d=64), appended to each kernel's cases;
+2b. the Clipper frontend stack: every named scenario with its selection
+   state on the card and on the CPU, reports equal byte for byte (wall ms
+   of each, policy-state device-to-host copies per query); a 1,048,576 x 4
+   fp32 contextual store on the card against one on the CPU under the same
+   batched Exp4 and Exp3 feedback (4,096 users a batch, with repeats),
+   within 1e-6 (ms per batch); the poisson scenario's lmserver stack
+   through ``ScenarioRunner`` on the card (counts set to 0 just before, each
+   rising; the decode step replayed from its CUDA graph), its report equal
+   to the CPU run's but ``engine.attention_backend`` and
+   ``engine.decode.graph``; then full-width smollm-360m through the same
+   runner (a subclass with the full config), the fields of its report that
+   differ from the reduced run's listed;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
    tokens, 32 new tokens each, greedy; the fused decode step runs eagerly
@@ -231,18 +245,112 @@ def sdpa(q, k, v, mask):
     return call
 
 
-def kernel_cases(dev):
-    import torch
+def _rmsnorm_case(dev, randn, n, d, residual):
     import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    x, w = randn((n, d)), randn((d,), 0.25) + 1
+    r = randn((n, d)) if residual else None
+    got = rmsnorm_op(x, w, residual=r)
+    want = rmsnorm_ref(x, w, residual=r)
+    pairs = zip(got, want) if residual else [(got, want)]
+    case = f"N={n} d={d} residual={residual}"
+    err = max(check("rmsnorm", g, e, case) for g, e in pairs)
+    nbytes = (2 * n * d * 2 + d * 2) * (2 if residual else 1)
+    lib = None
+    if not residual and hasattr(F, "rms_norm"):
+        lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
+    return dict(case=case, max_abs_err=err,
+                bound=bound(nbytes, (4 * n * d, FP32_FLOPS)),
+                **timings(lambda: rmsnorm_op(x, w, residual=r),
+                          lambda: rmsnorm_ref(x, w, residual=r), lib))
+
+
+def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
+    import torch
     from repro_torch.kernels.decode_attention.decode_attention import (
         block_warps, cluster_size)
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    q = randn((B, 1, Hq, D))
+    k, v = randn((B, Smax, Hkv, D)), randn((B, Smax, Hkv, D))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention_op(q, k, v, ln, window=window)
+    want = decode_attention_ref(q, k, v, ln, window=window)
+    case = f"B={B} Hq={Hq} Hkv={Hkv} D={D} Smax={Smax} window={window}"
+    err = check("decode_attention", got, want, case)
+    # positions each sample reads: [max(0, len - window), min(len, Smax))
+    used = [min(n, Smax) - (max(0, n - window) if window else 0)
+            for n in lengths]
+    nbytes = 2 * B * Hq * D * 2 + B * 4 + 2 * sum(used) * Hkv * D * 2
+    flops = 4 * Hq * D * sum(used)
+    pos = torch.arange(Smax, device=dev)
+    lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
+    mask = ((pos[None] < ln[:, None])
+            & (pos[None] >= lo[:, None]))[:, None, None, :]
+    c = cluster_size(B, Hkv, Smax, window)
+    return dict(
+        case=case, max_abs_err=err,
+        geometry=f"cluster C={c}, grid ({c}, {Hkv}, {B}) = "
+                 f"{c * Hkv * B} blocks of "
+                 f"{block_warps(Smax, window, c)} warps",
+        bound=bound(nbytes, (flops, BF16_TENSOR_FLOPS)),
+        **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
+                  lambda: decode_attention_ref(q, k, v, ln, window=window),
+                  sdpa(q, k, v, mask)))
+
+
+def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens):
+    import torch
     from repro_torch.kernels.flash_attention.flash_attention import geometry
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    q = randn((B, S, Hq, D))
+    k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_attention_op(q, k, v, kv_valid=kv)
+    want = flash_attention_ref(q, k, v, kv_valid=kv)
+    case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
+    err = check("flash_attention", got, want, case)
+    # keys each row attends: causal and below kv_valid
+    n_valid = sum(min(r + 1, n) for n in lens for r in range(S)) * Hq
+    # bytes: q read and out written for every row; K and V rows below
+    # kv_valid (the last row's causal walk reaches them all); a sample
+    # with kv_valid == 0 reads only V, the mean over the key blocks the
+    # plain path visits, all S rows at S <= 512
+    kv_rows = sum(2 * n if n else S for n in lens)
+    nbytes = 2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2 + B * 4
+    pos = torch.arange(S, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < kv[:, None, None]))[:, None]
+    geo = geometry(B, S, Hq, Hkv, D)
+    return dict(
+        case=case, max_abs_err=err,
+        geometry=f"{geo.m_tiles} M tiles of 64 (row, head) pairs, "
+                 f"grid ({geo.m_tiles}, {Hkv}, {B}) = {geo.blocks} "
+                 f"blocks, {geo.smem_bytes} B shared memory",
+        bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
+        **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
+                  lambda: flash_attention_ref(q, k, v, kv_valid=kv),
+                  sdpa(q, k, v, mask)))
+
+
+# the scenario model's shapes (reduced smollm-360m: 4 / 2 heads of 16,
+# d_model 64; slots 4, max_len 64, prompts of 8): appended to each
+# kernel's cases after the full-width ones
+SCENARIO_CASES = {
+    "rmsnorm": [(4, 64, False), (16, 64, True)],
+    "decode_attention": [(4, 4, 2, 16, 64, 0, [0, 9, 33, 64])],
+    "flash_attention": [(1, 8, 4, 2, 16, [8]), (2, 8, 4, 2, 16, [8, 5]),
+                        (4, 64, 4, 2, 16, [64, 33, 0, 17])],
+}
+
+
+def kernel_cases(dev):
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -254,61 +362,20 @@ def kernel_cases(dev):
 
     # rmsnorm: decode rows (8) and a full prefill batch (8 x 256), d = 960,
     # plain and with the residual add in front
-    d = 960
     for n in (8, 2048):
         for residual in (False, True):
-            x, w = randn((n, d)), randn((d,), 0.25) + 1
-            r = randn((n, d)) if residual else None
-            got = rmsnorm_op(x, w, residual=r)
-            want = rmsnorm_ref(x, w, residual=r)
-            pairs = zip(got, want) if residual else [(got, want)]
-            case = f"N={n} d={d} residual={residual}"
-            err = max(check("rmsnorm", g, e, case) for g, e in pairs)
-            nbytes = (2 * n * d * 2 + d * 2) * (2 if residual else 1)
-            lib = None
-            if not residual and hasattr(F, "rms_norm"):
-                lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
-            out["rmsnorm"].append(dict(
-                case=case, max_abs_err=err,
-                bound=bound(nbytes, (4 * n * d, FP32_FLOPS)),
-                **timings(lambda: rmsnorm_op(x, w, residual=r),
-                          lambda: rmsnorm_ref(x, w, residual=r), lib)))
+            out["rmsnorm"].append(_rmsnorm_case(dev, randn, n, 960,
+                                                residual))
 
     # decode: B=8 slots, 15/5 heads, D=64, Smax=256, mixed lengths incl. 0
     # and Smax, full attention and a window; then Smax=2048 (smollm's
     # context), lengths spread over 0-2048
-    B, Hq, Hkv, D = 8, 15, 5, 64
     for Smax, window, lengths in (
             (256, 0, [0, 1, 37, 128, 200, 255, 256, 64]),
             (256, 32, [0, 1, 37, 128, 200, 255, 256, 64]),
             (2048, 0, [0, 1, 300, 1024, 2047, 2048, 1500, 700])):
-        q = randn((B, 1, Hq, D))
-        k, v = randn((B, Smax, Hkv, D)), randn((B, Smax, Hkv, D))
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        got = decode_attention_op(q, k, v, ln, window=window)
-        want = decode_attention_ref(q, k, v, ln, window=window)
-        case = f"B={B} Hq={Hq} Hkv={Hkv} D={D} Smax={Smax} window={window}"
-        err = check("decode_attention", got, want, case)
-        # positions each sample reads: [max(0, len - window), min(len, Smax))
-        used = [min(n, Smax) - (max(0, n - window) if window else 0)
-                for n in lengths]
-        nbytes = 2 * B * Hq * D * 2 + B * 4 + 2 * sum(used) * Hkv * D * 2
-        flops = 4 * Hq * D * sum(used)
-        pos = torch.arange(Smax, device=dev)
-        lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
-        mask = ((pos[None] < ln[:, None])
-                & (pos[None] >= lo[:, None]))[:, None, None, :]
-        c = cluster_size(B, Hkv, Smax, window)
-        out["decode_attention"].append(dict(
-            case=case, max_abs_err=err,
-            geometry=f"cluster C={c}, grid ({c}, {Hkv}, {B}) = "
-                     f"{c * Hkv * B} blocks of "
-                     f"{block_warps(Smax, window, c)} warps",
-            bound=bound(nbytes, (flops, BF16_TENSOR_FLOPS)),
-            **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
-                      lambda: decode_attention_ref(q, k, v, ln,
-                                                   window=window),
-                      sdpa(q, k, v, mask))))
+        out["decode_attention"].append(_decode_case(
+            dev, randn, 8, 15, 5, 64, Smax, window, lengths))
 
     # flash prefill: B in {1, 8}, Sq = Sk in {8, 24 (ragged, one empty
     # prompt), 256}, kv_valid as the ladder-padded prefill passes it; then
@@ -320,35 +387,15 @@ def kernel_cases(dev):
                   2048: [2048, 1600, 1030, 2048, 600, 1280, 1800, 2000]}
     for S, B in ((8, 1), (8, 8), (24, 1), (24, 8), (256, 1), (256, 8),
                  (1024, 8), (2048, 8)):
-        lens = flash_lens[S][:B]
-        q = randn((B, S, Hq, D))
-        k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
-        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-        got = flash_attention_op(q, k, v, kv_valid=kv)
-        want = flash_attention_ref(q, k, v, kv_valid=kv)
-        case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
-        err = check("flash_attention", got, want, case)
-        # keys each row attends: causal and below kv_valid
-        n_valid = sum(min(r + 1, n) for n in lens for r in range(S)) * Hq
-        # bytes: q read and out written for every row; K and V rows
-        # below kv_valid (the last row's causal walk reaches them all);
-        # a sample with kv_valid == 0 reads only V, the mean over the key
-        # blocks the plain path visits, all S rows at S <= 512
-        kv_rows = sum(2 * n if n else S for n in lens)
-        nbytes = 2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2 + B * 4
-        pos = torch.arange(S, device=dev)
-        mask = ((pos[None, :] <= pos[:, None])[None]
-                & (pos[None, None, :] < kv[:, None, None]))[:, None]
-        geo = geometry(B, S, Hq, Hkv, D)
-        out["flash_attention"].append(dict(
-            case=case, max_abs_err=err,
-            geometry=f"{geo.m_tiles} M tiles of 64 (row, head) pairs, "
-                     f"grid ({geo.m_tiles}, {Hkv}, {B}) = {geo.blocks} "
-                     f"blocks, {geo.smem_bytes} B shared memory",
-            bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
-            **timings(lambda: flash_attention_op(q, k, v, kv_valid=kv),
-                      lambda: flash_attention_ref(q, k, v, kv_valid=kv),
-                      sdpa(q, k, v, mask))))
+        out["flash_attention"].append(_flash_case(
+            dev, randn, B, S, 15, 5, 64, flash_lens[S][:B]))
+
+    out["rmsnorm"] += [_rmsnorm_case(dev, randn, *c)
+                       for c in SCENARIO_CASES["rmsnorm"]]
+    out["decode_attention"] += [_decode_case(dev, randn, *c)
+                                for c in SCENARIO_CASES["decode_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, *c)
+                               for c in SCENARIO_CASES["flash_attention"]]
     return out
 
 
@@ -943,6 +990,175 @@ def cpu_parity(cfg, params, dev, *, state=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: the Clipper frontend stack, the contextual store and the
+# scenario runner on the card
+# ---------------------------------------------------------------------------
+
+def frontend_scenarios(dev):
+    """Every named scenario's frontend stack with its selection state on the
+    card and on the CPU: the two reports must be equal byte for byte. Wall
+    ms of each run (host clock; the frontend's models are numpy by the
+    scenario's definition, so the card holds only the Exp4 state) and the
+    state's device-to-host copies per query on the card."""
+    from repro_torch.workloads import scenario as S
+
+    made = []
+    real = S.make_clipper
+
+    def keep(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    rows = []
+    S.make_clipper = keep
+    try:
+        for name in sorted(S.SCENARIOS):
+            text, wall = {}, {}
+            for tag, d in (("cpu", "cpu"), ("cuda", dev)):
+                t0 = time.perf_counter()
+                text[tag] = S.ScenarioRunner(S.SCENARIOS[name],
+                                             device=d).run_json("frontend")
+                wall[tag] = 1e3 * (time.perf_counter() - t0)
+            if text["cuda"] != text["cpu"]:
+                raise AssertionError(f"frontend {name}: the card's report "
+                                     f"differs from the CPU's")
+            clip = made[-1]
+            if clip.policy_state.device.type != "cuda":
+                raise AssertionError(f"frontend {name}: the policy state is "
+                                     f"not on the card")
+            queries = len(clip.results)
+            rows.append(dict(name=name, queries=queries,
+                             card_ms=wall["cuda"], cpu_ms=wall["cpu"],
+                             host_copies=clip.policy.host_copies,
+                             copies_per_query=clip.policy.host_copies
+                             / max(queries, 1)))
+    finally:
+        S.make_clipper = real
+    return rows
+
+
+def contextual_store(dev, users=1 << 20, k=4, batch=4096, batches=8):
+    """A ``[users, k]`` fp32 ``ContextualStore`` on the card and one on the
+    CPU take the same batched Exp4, then Exp3, feedback: ``batches`` batches
+    of ``batch`` users, a quarter of each batch repeating earlier entries
+    of the batch (the last occurrence lands). Host-clock ms per batch (each
+    ending in a synchronise on the card; the first batch of each kind is a
+    warm-up) and max |card - CPU| over the whole store, within 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.core.context import ContextualStore
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for kind in ("exp4", "exp3"):
+        card = ContextualStore(users, k, kind=kind, device=dev)
+        cpu = ContextualStore(users, k, kind=kind, device="cpu")
+        ms = {"card": [], "cpu": []}
+        distinct = []
+        for b in range(batches + 1):
+            u = rng.integers(0, users, size=batch)
+            u[3 * batch // 4:] = u[:batch // 4]
+            distinct.append(len(np.unique(u)))
+            if kind == "exp4":
+                args = (u, rng.random((batch, k)).astype(np.float32),
+                        rng.random((batch, k)) < 0.9)
+            else:
+                args = (u, rng.integers(0, k, size=batch),
+                        rng.random(batch).astype(np.float32))
+            for tag, store in (("card", card), ("cpu", cpu)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                getattr(store, f"observe_{kind}")(*args)
+                torch.cuda.synchronize()
+                if b:
+                    ms[tag].append(1e3 * (time.perf_counter() - t0))
+        err = float((card.states.cpu() - cpu.states).abs().max())
+        if not torch.isfinite(card.states).all() or err > 1e-6:
+            raise AssertionError(f"contextual store {kind}: max |card - "
+                                 f"CPU| = {err} > 1e-6")
+        out[kind] = dict(card_ms=sum(ms["card"]) / batches,
+                         cpu_ms=sum(ms["cpu"]) / batches, max_abs_err=err,
+                         distinct_per_batch=min(distinct),
+                         max_abs_state=float(cpu.states.abs().max()))
+    out["bytes"] = users * k * 4
+    return out
+
+
+def _diff_fields(a, b, path=""):
+    """The dotted paths at which two report dicts differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [f for key in sorted(set(a) | set(b))
+                for f in _diff_fields(a.get(key), b.get(key),
+                                      f"{path}.{key}" if path else key)]
+    return [] if a == b else [path]
+
+
+def scenario_lmserver(dev):
+    """The poisson scenario's lmserver stack through ``ScenarioRunner``: the
+    reduced model on the card (its decode step replayed from the CUDA graph;
+    each kernel's count set to 0 just before and rising) and on the CPU,
+    reports equal but ``engine.attention_backend`` and
+    ``engine.decode.graph``; then full-width smollm-360m through the same
+    runner (a subclass with the full config), its fields that differ from
+    the reduced run's report listed."""
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.workloads.scenario import SCENARIOS, ScenarioRunner
+
+    class Keep(ScenarioRunner):
+        def build_lmserver(self, *, admission=None):
+            built = super().build_lmserver(admission=admission)
+            self.srv = built[0]
+            return built
+
+    class FullWidth(Keep):
+        def lm_config(self):
+            return ARCHITECTURES["smollm-360m"]
+
+    sc = SCENARIOS["poisson"]
+    runs = {}
+    for tag, runner in (("reduced", Keep(sc, device=dev)),
+                        ("full", FullWidth(sc, device=dev))):
+        for op in kernel_ops().values():
+            op.launches = 0
+        t0 = time.perf_counter()
+        rep = runner.run("lmserver")
+        wall = time.perf_counter() - t0
+        launches = {name: op.launches for name, op in kernel_ops().items()}
+        for name in ("rmsnorm", "decode_attention", "flash_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"scenario lmserver ({tag}): no {name} "
+                                     f"launch")
+        srv = runner.srv
+        if (srv.graph_replays != srv.decode_steps - 1
+                or not rep["engine"]["decode"]["graph"]):
+            raise AssertionError(f"scenario lmserver ({tag}): "
+                                 f"{srv.graph_replays} graph replays in "
+                                 f"{srv.decode_steps} decode steps")
+        done = srv.completed.values()
+        if (len(srv.completed) != sc.lm_requests
+                or any(len(r.tokens) != sc.max_new_tokens for r in done)
+                or any(not 0 <= t < srv.model.cfg.vocab_size
+                       for r in done for t in r.tokens)):
+            raise AssertionError(f"scenario lmserver ({tag}): not every "
+                                 f"request completed in vocabulary")
+        runs[tag] = dict(report=rep, wall_s=wall, launches=launches,
+                         decode_steps=srv.decode_steps,
+                         graph_replays=srv.graph_replays)
+    t0 = time.perf_counter()
+    cpu = ScenarioRunner(sc, device="cpu").run("lmserver")
+    cpu_wall = time.perf_counter() - t0
+    card = json.loads(json.dumps(runs["reduced"]["report"]))
+    differ = _diff_fields(card, cpu)
+    if sorted(differ) != ["engine.attention_backend", "engine.decode.graph"]:
+        raise AssertionError(f"scenario lmserver: the card's report differs "
+                             f"from the CPU's at {differ}")
+    runs["cpu_wall_s"] = cpu_wall
+    runs["full_vs_reduced"] = _diff_fields(runs["full"]["report"],
+                                           runs["reduced"]["report"])
+    return runs
+
+
 def report_path(label, run, rungs, prof, parity, per_prefill, per_step,
                 timing, tokens):
     log(f"{label} serve: {run['tokens']} tokens in {run['wall_s']:.3f} s "
@@ -1038,6 +1254,38 @@ def phases(dev):
         log(f"{kname} at its headline shape ({r['case']}): kernel "
             f"{r['ms']} ms / library {r['library_ms']} ms = {ratio}")
 
+    # the Clipper frontend stack, the contextual store, the scenario runner
+    t0 = time.perf_counter()
+    for r in frontend_scenarios(dev):
+        log(f"frontend {r['name']}: card report == CPU report; "
+            f"{r['queries']} queries, wall {r['card_ms']:.3f} ms on the "
+            f"card, {r['cpu_ms']:.3f} ms on the CPU; policy-state "
+            f"device-to-host copies {r['host_copies']} "
+            f"({r['copies_per_query']} per query)")
+    store = contextual_store(dev)
+    for kind in ("exp4", "exp3"):
+        r = store[kind]
+        log(f"contextual store {1 << 20} x 4 fp32 ({store['bytes']} B) "
+            f"{kind}: batch of 4096 users ({r['distinct_per_batch']}+ "
+            f"distinct) {r['card_ms']:.4f} ms on the card, "
+            f"{r['cpu_ms']:.4f} ms on the CPU; max |card - CPU| "
+            f"{r['max_abs_err']} (largest |log-weight| "
+            f"{r['max_abs_state']})")
+    lm = scenario_lmserver(dev)
+    for tag in ("reduced", "full"):
+        r = lm[tag]
+        log(f"scenario poisson lmserver ({tag}) on the card: "
+            f"{r['wall_s']:.3f} s, {r['decode_steps']} decode steps "
+            f"({r['graph_replays']} replayed from the graph), launches "
+            f"{r['launches']}")
+    log(f"scenario poisson lmserver on the CPU: {lm['cpu_wall_s']:.3f} s; "
+        f"the card's report equals it but engine.attention_backend and "
+        f"engine.decode.graph")
+    log(f"scenario poisson lmserver, full width vs reduced: fields that "
+        f"differ {lm['full_vs_reduced']}")
+    log(f"frontend, store and scenario phases: "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # the dense path: full-width smollm-360m
     t0 = time.perf_counter()
     cfg = ARCHITECTURES["smollm-360m"]
@@ -1097,7 +1345,11 @@ def phases(dev):
         route, source = SOURCES[kname]
         by_path = {cfg.name: run["launches"][kname],
                    xcfg.name: xrun["launches"][kname],
-                   "quickstart": qrun["launches"][kname]}
+                   "quickstart": qrun["launches"][kname],
+                   "scenario poisson lmserver":
+                       lm["reduced"]["launches"][kname],
+                   "scenario poisson lmserver, full width":
+                       lm["full"]["launches"][kname]}
         kernels.append(dict(
             name=kname, route=route, source=source, replaces=REPLACES[kname],
             launches=sum(by_path.values()), launches_by_path=by_path,

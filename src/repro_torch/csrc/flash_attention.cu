@@ -46,6 +46,11 @@
 //   sums the unrounded p), p rounded to bf16 only as the A operand of PV, O
 //   summed in fp32 and rounded to bf16 once.
 //
+// Head dims: D = 16 (the reduced scenario model) is one m16n8k16 k-step of
+//   Q K^T and two n tiles of O; its 48-byte shared-memory rows keep every
+//   cp.async destination and ldmatrix row 16-byte aligned, and the eight
+//   rows an ldmatrix reads fall in distinct banks.
+//
 // mma.sync, not wgmma: wgmma wants 64-row warpgroup tiles fed from
 //   shared-memory descriptors (and TMA to keep them full) for the card's full
 //   tensor-core rate, but at S <= 256 and D = 64 this kernel is bound by bytes
@@ -394,7 +399,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid,
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16 contiguous (model layout), each
 // 16-byte aligned; kv_valid [B] int32 or null; out [B, Sq, Hq, D] bf16. D in
-// {32, 64, 128}. Launch geometry from the caller: m_tiles = ceil(Sq * G / 64)
+// {16, 32, 64, 128}. Launch geometry from the caller: m_tiles = ceil(Sq * G / 64)
 // blocks per (kv head, sample) and smem = (64 + 4 * 64) * (D + 8) * 2 bytes
 // of dynamic shared memory; anything else is refused. Returns the
 // cudaError_t of the launch.
@@ -413,6 +418,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (m_tiles != (Sq * (Hq / Hkv) + kMTile - 1) / kMTile) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch<16>(q, k, v, kv_valid, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, q_block_ref, k_block_ref, scale, m_tiles, smem, s);
     case 32: return launch<32>(q, k, v, kv_valid, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, q_block_ref, k_block_ref, scale, m_tiles, smem, s);
     case 64: return launch<64>(q, k, v, kv_valid, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, q_block_ref, k_block_ref, scale, m_tiles, smem, s);
     case 128: return launch<128>(q, k, v, kv_valid, out, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, q_block_ref, k_block_ref, scale, m_tiles, smem, s);

@@ -1,7 +1,7 @@
 """Checked prefill-attention entry point (model layout ``[B, S, H, D]``).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (bf16, D in {32, 64, 128}, 16-byte aligned; any Sq, Sk).
+raise (bf16, D in {16, 32, 64, 128}, 16-byte aligned; any Sq, Sk).
 ``flash_attention_op.launches`` counts kernel launches."""
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import counted, softmax_scale
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 @counted

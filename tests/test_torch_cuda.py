@@ -120,6 +120,13 @@ PREFILL_CASES = [
     # key inside any row's window (the mean-of-V rows)
     (2, 16, 200, 15, 5, 64, [200, 150], 24, 184, 512, 1024),
     (4, 1024, 1024, 15, 5, 64, [1024, 0, 517, 1000], 0, None, 512, 1024),
+    # D = 16, the scenario model's head_dim (4 / 2 heads): its prefill
+    # batches, then up to its max_len, ragged, windowed, with an offset
+    (1, 8, 8, 4, 2, 16, [8], 0, None, 512, 1024),
+    (2, 8, 8, 4, 2, 16, [8, 5], 0, None, 512, 1024),
+    (4, 64, 64, 4, 2, 16, [64, 33, 0, 17], 0, None, 512, 1024),
+    (3, 48, 48, 4, 2, 16, [48, 29, 3], 8, None, 8, 16),
+    (2, 16, 64, 4, 2, 16, [64, 50], 0, 48, 512, 1024),
 ]
 
 
@@ -536,3 +543,72 @@ def test_capture_error_raises_without_eager_fallback(dev):
         assert launch_counts() == before
         assert srv.decode_steps == 1 and srv.graph_replays == 0
         assert srv._graph is None
+
+
+def test_contextual_store_on_card_matches_cpu(dev):
+    """Batched Exp3 and Exp4 feedback on the card against the same batches
+    on the CPU: batches of 64 users out of 50, so users repeat, and each
+    user's last occurrence lands on both devices. Within 1e-6 plus two fp32
+    ulps of the largest log-weight (the card's exp and log against the
+    CPU's)."""
+    import numpy as np
+
+    from repro_torch.core.context import ContextualStore
+
+    for kind in ("exp3", "exp4"):
+        stores = [ContextualStore(50, 4, kind=kind, eta=0.5, device=d)
+                  for d in ("cpu", dev)]
+        rng = np.random.default_rng(0)
+        for _ in range(20):
+            users = rng.integers(0, 120, size=64)
+            assert len(np.unique(users % 50)) < len(users)
+            stores[1].load_state_dict(stores[0].state_dict())
+            if kind == "exp3":
+                chosen = rng.integers(0, 4, size=64)
+                losses = rng.random(64).astype(np.float32)
+                for st in stores:
+                    st.observe_exp3(users, chosen, losses)
+            else:
+                losses = rng.random((64, 4)).astype(np.float32)
+                avail = rng.random((64, 4)) < 0.8
+                for st in stores:
+                    st.observe_exp4(users, losses, avail)
+            want = stores[0].states
+            tol = 1e-6 + 2 * float(torch.finfo(torch.float32).eps
+                                   * want.abs().max())
+            torch.testing.assert_close(stores[1].states.cpu(), want,
+                                       rtol=0, atol=tol)
+        assert stores[1].states.device.type == "cuda"
+
+
+def test_frontend_scenario_on_card_matches_cpu(dev):
+    """The stragglers scenario's frontend stack with its selection state on
+    the card: the report is the CPU run's, byte for byte, and every query
+    rendered from more than one model read the state once."""
+    from repro_torch.workloads.scenario import ScenarioRunner, SCENARIOS
+
+    sc = SCENARIOS["stragglers"]
+    reports = [ScenarioRunner(sc, device=d).run_json("frontend")
+               for d in ("cpu", dev)]
+    assert reports[1] == reports[0]
+
+
+def test_lmserver_scenario_on_card_matches_cpu(dev):
+    """The poisson scenario's lmserver stack on the card (its decode step
+    replayed from a CUDA graph) and on the CPU: the reports agree but for
+    ``engine.attention_backend`` and ``engine.decode.graph``; the kernels
+    ran."""
+    import json
+
+    from repro_torch.workloads.scenario import ScenarioRunner, SCENARIOS
+
+    ops = (rmsnorm_op, decode_attention_op, flash_attention_op)
+    before = [op.launches for op in ops]
+    card = ScenarioRunner(SCENARIOS["poisson"], device=dev).run("lmserver")
+    assert all(op.launches > b for op, b in zip(ops, before))
+    cpu = ScenarioRunner(SCENARIOS["poisson"], device="cpu").run("lmserver")
+    assert card["engine"]["attention_backend"] == "kernels"
+    assert card["engine"]["decode"].pop("graph") is True
+    assert cpu["engine"]["decode"].pop("graph") is False
+    cpu["engine"]["attention_backend"] = "kernels"
+    assert json.dumps(card, sort_keys=True) == json.dumps(cpu, sort_keys=True)

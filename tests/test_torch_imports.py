@@ -25,9 +25,17 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+missing = sorted(set(MUST) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
+# modules the guard must find (and import without loading JAX): the
+# frontend stack, the obs layer and the scenario CLI among them
+MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
+        "repro_torch.core.context", "repro_torch.core.straggler",
+        "repro_torch.core.cache", "repro_torch.core.containers",
+        "repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.obs.cli",
+        "repro_torch.workloads.scenario", "repro_torch.workloads.run")
 
 
 def _env():
@@ -38,7 +46,8 @@ def _env():
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run(
-        [sys.executable, "-c", _GUARD.format(root=str(ROOT))],
+        [sys.executable, "-c",
+         f"MUST = {MUST!r}\n" + _GUARD.format(root=str(ROOT))],
         capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 

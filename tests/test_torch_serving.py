@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import build_pair, mesh_rules
+from _torch_parity import (assert_streams_within_ties, build_pair, mesh_rules,
+                           record_logits)
 
 from repro.core.metrics import VirtualClock
 from repro.serving.engine import LMServer as JLMServer
@@ -42,50 +43,6 @@ def _servers(jm, tm, **kw):
     tsrv = LMServer(tm, device="cpu", clock=TVirtualClock(),
                     service_model=_service_model, **kw)
     return jsrv, tsrv
-
-
-def _bf16_ulp(x: float) -> float:
-    """Spacing of bf16 values (8 significant bits) at magnitude ``x``."""
-    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 2.0 ** -133
-
-
-def _record_logits(monkeypatch, srv, engine_module, to_numpy, sync):
-    """Record, per request, the logits row each of its tokens was sampled
-    from: wraps the engine module's ``sample`` and the server's ``_admit``
-    and ``_decode_once``. A prefill's row i belongs to the i-th admitted
-    slot in slot order, a decode step's row s to the request in slot s."""
-    calls, per_req = [], {}
-    sample = engine_module.sample
-
-    def recording_sample(logits, key, **kw):
-        to_numpy(logits, calls)
-        return sample(logits, key, **kw)
-
-    monkeypatch.setattr(engine_module, "sample", recording_sample)
-    admit, decode = srv._admit, srv._decode_once
-
-    def recording_admit(params):
-        before, n = set(srv._active), len(calls)
-        admit(params)
-        sync()
-        if len(calls) > n:
-            new = sorted(s for s in srv._active if s not in before)
-            for i, s in enumerate(new):
-                per_req.setdefault(srv._active[s].request_id, []).append(
-                    calls[-1][i])
-
-    def recording_decode(params):
-        slots = {s: r.request_id for s, r in srv._active.items()}
-        n = len(calls)
-        decode(params)
-        sync()
-        if len(calls) > n:
-            for s, rid in slots.items():
-                per_req[rid].append(calls[-1][s])
-
-    monkeypatch.setattr(srv, "_admit", recording_admit)
-    monkeypatch.setattr(srv, "_decode_once", recording_decode)
-    return per_req
 
 
 @pytest.mark.parametrize("seed", [11, 12, 17])
@@ -131,12 +88,12 @@ def assert_greedy_streams_match(monkeypatch, name, seed, *, fused):
     jsrv, tsrv = _servers(jm, tm, slots=4, max_len=MAX_LEN, temperature=0.0,
                           fused=fused)
     logits = [
-        _record_logits(
+        record_logits(
             monkeypatch, jsrv, jax_engine,
             lambda x, out: jax.debug.callback(
                 lambda a: out.append(np.asarray(a).astype(np.float32)), x),
             jax.effects_barrier),
-        _record_logits(
+        record_logits(
             monkeypatch, tsrv, torch_engine,
             lambda x, out: out.append(x.float().numpy().copy()),
             lambda: None)]
@@ -145,21 +102,8 @@ def assert_greedy_streams_match(monkeypatch, name, seed, *, fused):
         rids = [srv.submit(p, max_new_tokens=8) for p in prompts]
         srv.run(params)
         streams.append({r: srv.completed[r].tokens for r in rids})
-    for rid in rids:
-        jt, tt = streams[0][rid], streams[1][rid]
-        assert len(jt) == len(tt) == 8
-        assert [int(np.argmax(row)) for row in logits[0][rid]] == jt
-        assert [int(np.argmax(row)) for row in logits[1][rid]] == tt
-        k = next((i for i, (a, b) in enumerate(zip(jt, tt)) if a != b), None)
-        if k is None:
-            continue
-        row = logits[0][rid][k]
-        a, b = jt[k], tt[k]
-        gap = float(row[a] - row[b])
-        assert gap <= _bf16_ulp(max(abs(row[a]), abs(row[b]))), (
-            f"request {rid} diverges at token {k}: JAX picks {a} "
-            f"(logit {row[a]}), the port {b} (JAX logit {row[b]}): not a "
-            f"bf16 near-tie")
+    assert all(len(streams[0][r]) == len(streams[1][r]) == 8 for r in rids)
+    assert_streams_within_ties(streams, logits)
     assert tsrv.rung_dispatches == jsrv.rung_dispatches
     assert len(tsrv.rung_dispatches) > 1
     return jsrv, tsrv
