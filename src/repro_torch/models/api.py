@@ -45,14 +45,16 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16, **opts) -> Model:
-    """Dispatch on family. Ported: the dense decoder-only family and the
-    ssm family (xlstm)."""
-    from repro_torch.models import transformer, xlstm
+    """Dispatch on family. Ported: the dense decoder-only family, the ssm
+    family (xlstm) and the hybrid family (hymba)."""
+    from repro_torch.models import hymba, transformer, xlstm
 
     dev = resolve_device(device)
     if cfg.family == "dense":
         return transformer.build(cfg, device=dev, dtype=dtype, **opts)
     if cfg.family == "ssm":
         return xlstm.build(cfg, device=dev, dtype=dtype, **opts)
+    if cfg.family == "hybrid":
+        return hymba.build(cfg, device=dev, dtype=dtype, **opts)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet")

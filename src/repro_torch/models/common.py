@@ -186,12 +186,14 @@ def attn_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, nq: int, nkv: int,
             v.view(B, S, nkv, hd))
 
 
+def silu(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` spelled out as the reference lowers it, ``z * (1 /
+    (1 + exp(-z)))``, each op rounding to the working dtype."""
+    return z * torch.reciprocal(1 + torch.exp(-z))
+
+
 def glu_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    # silu spelled out as the reference lowers it, g * (1 / (1 + exp(-g))),
-    # each op rounding to the working dtype
-    g = x @ p["wg"]
-    h = g * torch.reciprocal(1 + torch.exp(-g)) * (x @ p["wi"])
-    return h @ p["wo"]
+    return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
 def embed_tokens(p: Dict[str, torch.Tensor],
@@ -227,3 +229,23 @@ def cache_update(k_cache, v_cache, k_new, v_new, lengths) -> None:
     pos = lengths.long().clamp(0, Smax - 1)
     k_cache[rows, pos] = k_new[:, 0]
     v_cache[rows, pos] = v_new[:, 0]
+
+
+def ring_cache_update(k_cache, v_cache, k_new, v_new, lengths) -> None:
+    """Sliding-window ring buffer, in place: write at ``lengths % W``
+    (``W = k_cache.shape[1]``). RoPE is applied at write time and attention
+    does not depend on the order of its KV rows, so the ring's order does
+    not matter, only the count of valid rows."""
+    cache_update(k_cache, v_cache, k_new, v_new,
+                 lengths % k_cache.shape[1])
+
+
+def attention_decode_ring(q, k_cache, v_cache, lengths, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention against a window-sized ring cache [B,W,Hkv,D]: the
+    first ``min(lengths + 1, W)`` slots are valid (all of them once the
+    ring has wrapped). lengths [B]: tokens seen before this one, whose row
+    was just written. The count stays on the device."""
+    count = (lengths + 1).clamp_max(k_cache.shape[1])
+    return attention_decode(q, k_cache, v_cache, count, window=0,
+                            scale=scale)

@@ -45,14 +45,13 @@ def pad_mask_gates(log_f, log_i, vl):
 def linear_attention_step(state, q, k, v, log_f, log_i):
     """One decode step, updating ``state`` in place. state [B,H,dk,dv] fp32;
     q, k [B,H,dk]; v [B,H,dv]; log_f/log_i [B,H]. Returns (y [B,H,dv],
-    state). ``state.mul_(f)``, ``outer.mul_(i)``, ``state.add_(outer)``
-    round as the reference's ``f * state + i * outer`` does."""
+    state). The reference's ``f * state + i * outer`` compiles to one
+    fused multiply-add, ``fma(f, state, round(i * outer))``; ``addcmul``
+    rounds the same way."""
     f = torch.exp(log_f.float())[..., None, None]
     i = torch.exp(log_i.float())[..., None, None]
     outer = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
-    state.mul_(f)
-    outer.mul_(i)
-    state.add_(outer)
+    state.copy_(outer.mul_(i).addcmul_(state, f))
     y = torch.einsum("bhk,bhkv->bhv", q.float(), state)
     return y.to(v.dtype), state
 

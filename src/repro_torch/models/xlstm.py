@@ -27,7 +27,7 @@ from repro_torch.kernels import softmax_scale
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
     Spec, add_rmsnorm, embed_specs, embed_tokens, init_tree, last_valid_slice,
-    lm_head, rmsnorm, stacked, unstack,
+    lm_head, rmsnorm, silu, stacked, unstack,
 )
 from repro_torch.models.linear_core import (
     chunked_linear_attention, linear_attention_step, normalized_readout,
@@ -56,12 +56,6 @@ def _slstm_specs(d: int) -> Dict[str, Spec]:
         "b": Spec((4 * d,), "zeros"),
         "w_out": Spec((d, d), fan_in=d),
     }
-
-
-def _silu(z: torch.Tensor) -> torch.Tensor:
-    # as the reference lowers it, z * (1 / (1 + exp(-z))), each op rounding
-    # to the working dtype (see common.glu_apply)
-    return z * torch.reciprocal(1 + torch.exp(-z))
 
 
 def _mlstm_gates(p, c_in):
@@ -95,7 +89,7 @@ def _mlstm_out(p, y, z):
     """Output gate and down projection of the normalized readout ``y``
     [B,S,nh,hd]: ``y * silu(z) @ w_down``."""
     B, S = z.shape[:2]
-    return (y.reshape(B, S, -1) * _silu(z)) @ p["w_down"]
+    return (y.reshape(B, S, -1) * silu(z)) @ p["w_down"]
 
 
 def _mlstm_seq(p, h, state, chunk: int, scale: float, vl=None):

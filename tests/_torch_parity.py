@@ -28,6 +28,13 @@ CONFIGS = ("g2", "g3")
 # reduced xlstm-125m (1 pair, d_model 64, 4 heads, hd 32), built with
 # chunk 8 (prompts span several chunks) and with the default chunk 256
 XLSTM_CONFIGS = ("x8", "x256")
+# reduced hymba-1.5b (d_model 64, 4 / 2 heads of 16, window 16, ssm_state
+# 8): h2 as the JAX tests reduce it (2 layers, globals (0,): segments [1]),
+# chunk 256; h5, 5 layers with globals (0, 2, 4), segments [1, 1, 0] like
+# the full model's [14, 15, 0], built with chunk 8 so that prompts span
+# several chunks of the scan
+HYMBA_CONFIGS = ("h2", "h5")
+H5 = dict(num_layers=5, global_layers=(0, 2, 4))
 
 
 def configs(name: str):
@@ -35,6 +42,12 @@ def configs(name: str):
     if name in XLSTM_CONFIGS:
         return (reduced_config(ARCHITECTURES["xlstm-125m"]),
                 t_reduced_config(T_ARCHITECTURES["xlstm-125m"]))
+    if name in HYMBA_CONFIGS:
+        jc = reduced_config(ARCHITECTURES["hymba-1.5b"])
+        tc = t_reduced_config(T_ARCHITECTURES["hymba-1.5b"])
+        if name == "h5":
+            jc, tc = (dataclasses.replace(c, **H5) for c in (jc, tc))
+        return jc, tc
     jc = reduced_config(ARCHITECTURES["smollm-360m"])
     tc = t_reduced_config(T_ARCHITECTURES["smollm-360m"])
     if name == "g3":
@@ -51,6 +64,8 @@ def build_pair(name: str, seed: int = 0):
     """JAX model + params and the port's model + bridged params (CPU)."""
     jc, tc = configs(name)
     opts = {"chunk": int(name[1:])} if name in XLSTM_CONFIGS else {}
+    if name == "h5":
+        opts = {"chunk": 8}
     mesh, rules = mesh_rules()
     jm = jax_build_model(jc, mesh, rules, **opts)
     jp = jm.init(jax.random.PRNGKey(seed))

@@ -42,12 +42,20 @@ def _randn(shape, gen, dev, scale=1.0):
         torch.bfloat16)
 
 
+def _tree_to(tree, dev):
+    """A nested dict of tensors, each copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def _close(got, want, rtol, atol):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 
 
-@pytest.mark.parametrize("n,d", [(1, 960), (37, 960), (8, 64), (5, 3000)])
+@pytest.mark.parametrize("n,d", [(1, 960), (37, 960), (8, 64), (5, 3000),
+                                 (8, 1600)])
 @pytest.mark.parametrize("residual", [False, True])
 def test_rmsnorm_kernel(dev, n, d, residual):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -81,6 +89,11 @@ DECODE_CASES = [
     (2, 8, 1, 100, 40, [40, 3], 0),                # G = 8, D = 100: 2 a lane
     (2, 16, 2, 128, 1000, [1000, 517], 0),         # G = 8, four warps
     (2, 6, 2, 20, 700, [700, 300], 0),             # 4-byte loads, four warps
+    # hymba's rings: counts min(len + 1, W), full width (G = 5, W = 2048,
+    # lengths past the window) and reduced (W = 16); its global cache
+    (8, 25, 5, 64, 2048, [1, 300, 2048, 2048, 1500, 2048, 37, 2048], 0),
+    (4, 4, 2, 16, 16, [1, 6, 16, 16], 0),
+    (8, 25, 5, 64, 3200, [1, 2049, 3100, 3073, 500, 2048, 3200, 1000], 0),
 ]
 
 
@@ -127,6 +140,12 @@ PREFILL_CASES = [
     (4, 64, 64, 4, 2, 16, [64, 33, 0, 17], 0, None, 512, 1024),
     (3, 48, 48, 4, 2, 16, [48, 29, 3], 8, None, 8, 16),
     (2, 16, 64, 4, 2, 16, [64, 50], 0, 48, 512, 1024),
+    # hymba: 25 / 5 heads, a ragged rung-2048 batch with the window 2048 not
+    # yet binding, and the exact 3072-token prompt where it binds; reduced
+    # (window 16) on its exact 24-token prompt
+    (2, 2048, 2048, 25, 5, 64, [2048, 1030], 2048, None, 512, 1024),
+    (1, 3072, 3072, 25, 5, 64, None, 2048, None, 512, 1024),
+    (2, 24, 24, 4, 2, 16, None, 16, None, 512, 1024),
 ]
 
 
@@ -195,6 +214,8 @@ SCAN_CASES = [
     (2, 96, 2, 100, 48, 32, True),       # dk = 100: not a micro-tile multiple
     (2, 400, 2, 384, 96, 200, True),     # chunk 200: a ragged row tile
     (2, 512, 4, 384, 385, 64, True),     # 8 chunks of 64, the mLSTM's dv
+    (2, 512, 25, 16, 64, 256, True),     # hymba: ssm_state 16, head_dim 64
+    (3, 24, 4, 8, 16, 8, True),          # reduced hymba, 3 chunks
 ]
 
 
@@ -310,12 +331,7 @@ def test_lmserver_on_card_runs_every_kernel(dev, heads):
     cpu_params = cpu.init(torch.Generator().manual_seed(0))
     card = build_model(cfg, device=dev)
 
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        return tree.to(dev)
-
-    card_params = to_card(cpu_params)
+    card_params = _tree_to(cpu_params, dev)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(3, 24)).astype(np.int32)
     lens = np.array([24, 17, 5], np.int32)
@@ -357,12 +373,7 @@ def test_xlstm_lmserver_on_card(dev):
     cpu_params = cpu.init(torch.Generator().manual_seed(0))
     card = build_model(cfg, device=dev, chunk=8)
 
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        return tree.to(dev)
-
-    card_params = to_card(cpu_params)
+    card_params = _tree_to(cpu_params, dev)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(3, 24)).astype(np.int32)
     lens = np.array([24, 17, 5], np.int32)
@@ -389,13 +400,66 @@ def test_xlstm_lmserver_on_card(dev):
     assert srv.stats["host_syncs_per_decode_step"] == 1.0
 
 
+def test_hymba_lmserver_on_card(dev):
+    """Reduced hymba served on the card: all four kernels launch, every
+    request completes (prompts past the window of 16 take the exact path,
+    decoding past it wraps the rings), the decode step replays from its
+    graph, and prefill logits and every cache leaf match the CPU plain path
+    on the same weights (bf16 rounding in other orders through two layers:
+    logits within 5 % of the largest; leaves within 5 % of the leaf's
+    largest magnitude, about twice the largest seen on an H100, 2.5 % of
+    an SSD state, where a flipped input enters scaled by the input gate)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCHITECTURES, reduced_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import LMServer
+
+    cfg = reduced_config(ARCHITECTURES["hymba-1.5b"])
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev)
+
+    card_params = _tree_to(cpu_params, dev)
+    rng = np.random.default_rng(0)
+    for S, lens in ((16, [16, 11, 5]), (24, None)):
+        toks = rng.integers(0, cfg.vocab_size, size=(3, S)).astype(np.int32)
+        outs = []
+        for model, params, d in ((cpu, cpu_params, "cpu"),
+                                 (card, card_params, dev)):
+            batch = {"tokens": torch.from_numpy(toks).to(d)}
+            if lens is not None:
+                batch["lengths"] = torch.tensor(lens, dtype=torch.int32,
+                                                device=d)
+            logits, cache = model.prefill(params, batch, max_len=48)
+            outs.append([logits.float().cpu()] + [
+                cache[k].float().cpu() for k in sorted(cache)
+                if k != "lengths"])
+        for i, (a, b) in enumerate(zip(*outs)):
+            assert (b - a).abs().max() <= 0.05 * a.abs().max(), (S, i)
+
+    ops = (rmsnorm_op, decode_attention_op, flash_attention_op, ssd_scan_op)
+    before = [op.launches for op in ops]
+    srv = LMServer(card, device=dev, slots=4, max_len=64)
+    lengths = (3, 9, 17, 30, 12, 16)
+    rids = [srv.submit(rng.integers(0, cfg.vocab_size, size=n),
+                       max_new_tokens=12) for n in lengths]
+    srv.run(card_params)
+    assert all(len(srv.completed[r].tokens) == 12 for r in rids)
+    assert all(op.launches > b for op, b in zip(ops, before))
+    assert srv.graph_replays == srv.decode_steps - 1
+    assert srv.stats["host_syncs_per_decode_step"] == 1.0
+
+
 # ---------------------------------------------------------------------------
 # the fused decode step as a CUDA graph
 # ---------------------------------------------------------------------------
 
 def _small_model(kind, dev):
-    """A reduced dense model (G = 2, D = 32: shapes every kernel takes) or
-    reduced xlstm (chunk 8), with seeded weights on the card."""
+    """A reduced dense model (G = 2, D = 32: shapes every kernel takes),
+    reduced xlstm (chunk 8) or reduced hymba (window 16: prompts past it
+    take the exact path, and decoding past it wraps the rings), with
+    seeded weights on the card."""
     import dataclasses
 
     from repro_torch.configs.registry import ARCHITECTURES, reduced_config
@@ -406,6 +470,9 @@ def _small_model(kind, dev):
             reduced_config(ARCHITECTURES["smollm-360m"]), num_heads=4,
             num_kv_heads=2, head_dim=32, d_model=128, d_ff=256)
         model = build_model(cfg, device=dev)
+    elif kind == "hymba":
+        model = build_model(reduced_config(ARCHITECTURES["hymba-1.5b"]),
+                            device=dev)
     else:
         model = build_model(reduced_config(ARCHITECTURES["xlstm-125m"]),
                             device=dev, chunk=8)
@@ -454,7 +521,7 @@ def _serve(srv, params, prompts_seed=0, n=6, max_new=8):
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-@pytest.mark.parametrize("kind", ["dense", "xlstm"])
+@pytest.mark.parametrize("kind", ["dense", "xlstm", "hymba"])
 def test_graphed_decode_matches_eager(dev, kind, temperature):
     """The same requests through a server whose fused step replays as a
     CUDA graph and through one that runs it eagerly: the same kernels on

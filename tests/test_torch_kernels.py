@@ -91,6 +91,9 @@ DECODE_CASES = [
     (4, 6, 2, 16, 24, [24, 0, 5, 13], 0),          # G = 3, Smax not 2^k
     (3, 6, 2, 32, 64, [64, 40, 0], 8),             # window > 0
     (2, 15, 5, 64, 256, [256, 100], 0),            # full-width heads
+    # reduced hymba's ring: W = 16 slots, counts min(len + 1, W) for
+    # lengths 0, 5, 15 and 40 (wrapped)
+    (4, 4, 2, 16, 16, [1, 6, 16, 16], 0),
 ]
 
 
@@ -232,6 +235,7 @@ def _close_scan(t, j, dtype):
     (2, 3, 64, 16, 8, 16),      # mLSTM-like (dk == dv after aug)
     (1, 4, 128, 16, 64, 32),    # SSD-like (small state dim, big head dim)
     (2, 2, 32, 8, 8, 32),       # single chunk
+    (2, 4, 32, 8, 16, 8),       # reduced hymba: ssm_state 8, head_dim 16
 ])
 def test_ssd_scan_plain_matches_pallas(B, H, S, dk, dv, chunk, dtype):
     """The sweep of tests/test_kernels.py, against the Pallas kernel in
@@ -290,6 +294,41 @@ def test_ssd_scan_plain_matches_stepwise_recurrence(chunk):
         _close_scan(y[:, t], ys, jnp.float32)
     _close_scan(state, jstate, jnp.float32)
     _close_scan(st, state, jnp.float32)
+
+
+def test_linear_attention_step_rounds_as_compiled_jax():
+    """The decode state update ``f * state + i * outer`` compiles to one
+    fused multiply-add, ``fma(f, state, round(i * outer))``; the port's
+    ``addcmul`` rounds the same way (three separate roundings differ in
+    ~27 % of the elements). The two libraries' fp32 ``exp`` differ in the
+    last ulp now and then (ROADMAP.md §C), so the gates are drawn where
+    both give the same ``exp(log_f)`` and ``exp(log_i)``: from there the
+    new state equals the compiled reference's bit for bit."""
+    rng = np.random.default_rng(10)
+    B, H, dk, dv = 3, 4, 8, 16
+    s0 = (rng.normal(size=(B, H, dk, dv)) * 3).astype(np.float32)
+    jq, tq = _bf16(rng, (B, H, dk))
+    jk, tk = _bf16(rng, (B, H, dk))
+    jv, tv = _bf16(rng, (B, H, dv))
+
+    def gates(draw):
+        x = draw(size=4 * B * H).astype(np.float32)
+        same = (np.asarray(jax.jit(jnp.exp)(x))
+                == torch.exp(torch.from_numpy(x)).numpy())
+        return x[same][:B * H].reshape(B, H)
+
+    lf = gates(lambda size: -np.abs(rng.normal(size=size)))
+    li = gates(rng.normal)
+    jy, jst = jax.jit(JLC.linear_attention_step)(
+        jnp.asarray(s0), jq, jk, jv, jnp.asarray(lf), jnp.asarray(li))
+    state = torch.from_numpy(s0.copy())
+    ty, out = TLC.linear_attention_step(state, tq, tk, tv,
+                                        torch.from_numpy(lf),
+                                        torch.from_numpy(li))
+    assert out is state
+    np.testing.assert_array_equal(state.numpy(), np.asarray(jst))
+    # the read-out q . S sums dk fp32 products in the libraries' orders
+    np.testing.assert_allclose(f32(ty), f32(jy), rtol=BF16_ULP, atol=1e-6)
 
 
 def test_pad_mask_gates_and_readout_match_jax():

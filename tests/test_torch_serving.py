@@ -46,7 +46,7 @@ def _servers(jm, tm, **kw):
 
 
 @pytest.mark.parametrize("seed", [11, 12, 17])
-@pytest.mark.parametrize("name", ["g2", "g3", "x8"])
+@pytest.mark.parametrize("name", ["g2", "g3", "x8", "h2"])
 def test_greedy_streams_identical(monkeypatch, name, seed):
     """Each request's greedy stream is JAX's, token for token, up to the
     first step whose two best JAX logits lie within one bf16 ulp: there a
@@ -56,7 +56,7 @@ def test_greedy_streams_identical(monkeypatch, name, seed):
 
 
 @pytest.mark.parametrize("seed", [11, 12, 17])
-@pytest.mark.parametrize("name", ["g2", "g3", "x8"])
+@pytest.mark.parametrize("name", ["g2", "g3", "x8", "h2"])
 def test_reference_loop_greedy_streams_identical(monkeypatch, name, seed):
     """``fused=False``, the reference's per-slot loop, in both engines: the
     same streams under the same one-ulp tie rule, the same stats (host syncs
