@@ -23,8 +23,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    Smax=64; RMSNorm at d=64) and for hymba's (RMSNorm at d=1600; decode
    at G=5 on a 2048-slot ring and a 3200-slot cache; flash at 25 / 5
    heads on a ragged rung-2048 batch and on a 3072-token prompt with
-   window 2048; ssd_scan at dk=16 dv=64 H=25), appended to each kernel's
-   cases;
+   window 2048; ssd_scan at dk=16 dv=64 H=25) and for the full-width LM
+   cascade's (decode at Smax=64, 4 blocks of 2 warps per (kv head,
+   sample); flash at rung 8 with 2 and 4 prompts), appended to each
+   kernel's cases;
 2b. the Clipper frontend stack: every named scenario with its selection
    state on the card and on the CPU, reports equal byte for byte (wall ms
    of each, policy-state device-to-host copies per query); a 1,048,576 x 4
@@ -35,8 +37,27 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    rising; the decode step replayed from its CUDA graph), its report equal
    to the CPU run's but ``engine.attention_backend`` and
    ``engine.decode.graph``; then full-width smollm-360m through the same
-   runner (a subclass with the full config), the fields of its report that
-   differ from the reduced run's listed;
+   runner (``build_lmserver(cfg=)``), the fields of its report that differ
+   from the reduced run's listed;
+2c. model composition and the control plane: the ``cascade`` and
+   ``fanout`` pipelines with their Exp4 state on the card and on the CPU,
+   reports and span logs equal byte for byte (wall ms, state copies per
+   pipeline query); ``repro_torch.cluster.run``'s ``main`` on the
+   flash-crowd scenario (seed 0), card against CPU: the frontend and
+   pipeline stacks and a crash fault with and without recovery write the
+   same report, span log, time series and audit doc, and the lmserver stack
+   with shedding admission runs the kernels (counts set to 0 just before,
+   each rising), its report equal to the CPU's but the engine fields; the
+   reduced ``lmcascade`` (two ``LMServer`` tiers on one card, each with its
+   own captured decode graph) against the CPU: the same comparison for
+   both tiers' sections, each request's tier, each tier's greedy streams
+   (equal up to the first step whose two best CPU logits lie within one
+   bf16 ulp, where the card may pick the other token), and the launches
+   adding up across both tiers' graphs; then the cascade at full width (smollm-360m,
+   seeded random weights, bf16, in both tiers): both tiers replay their own
+   graphs, the three counts set to 0 just before rise, every token lies in
+   the vocabulary; per tier the requests served, escalations, ms per
+   graphed decode step and tokens/s;
 3. serve full-width smollm-360m (32 layers, seeded random weights, bf16)
    through ``LMServer``: 16 requests, slots=8, max_len=256, prompts of 8-200
    tokens, 32 new tokens each, greedy; the fused decode step runs eagerly
@@ -85,6 +106,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +154,13 @@ STATE_TOL = {"xlstm-125m": 0.015, "hymba-1.5b": 0.12,
 # most this many times as far from it as the CPU's bf16 path, logits and
 # each state leaf (seen: 1.21 at full width, 1.11 on the 2-layer cut)
 ANCHOR_RATIO = 2.0
+# card vs CPU plain path, the LM cascade's reduced smollm (2 layers,
+# d_model 64, head_dim 16, bf16) at the steps whose inputs the two devices
+# share: logits within this share of the CPU row's largest |logit|, about
+# twice the largest difference seen on an H100 (1.35 %); a greedy stream
+# may part from the CPU's where its two best logits lie closer than that
+# (seen: 2 of 43 streams, each at a gap of 2 bf16 ulps)
+CASCADE_LOGIT_TOL = 0.03
 
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
@@ -403,6 +432,19 @@ SCENARIO_CASES = {
 }
 
 
+# the LM cascade's shapes at full width (smollm-360m in both tiers: 15 / 5
+# heads of 64; slots 4, max_len 64, prompts of 8): decode at Smax 64, which
+# splits each (kv head, sample) over 4 blocks of 2 warps, at the lengths
+# the cascade reaches (8-16) and at 0 and Smax; flash on the 1- and
+# 2-prompt batches it prefills and on a full batch of 4
+CASCADE_CASES = {
+    "decode_attention": [(4, 15, 5, 64, 64, 0, [0, 9, 33, 64]),
+                         (4, 15, 5, 64, 64, 0, [8, 11, 15, 16])],
+    "flash_attention": [(2, 8, 15, 5, 64, [8, 8]),
+                        (4, 8, 15, 5, 64, [8, 8, 8, 8])],
+}
+
+
 # full-width hymba-1.5b's shapes (25 / 5 heads of 64, d_model 1600, window
 # 2048, slots 8, max_len 3200): RMSNorm on decode rows and on a rung-2048
 # prefill batch with the residual in front; decode against a 2048-slot
@@ -469,6 +511,10 @@ def kernel_cases(dev):
                                 for c in SCENARIO_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, *c)
                                for c in SCENARIO_CASES["flash_attention"]]
+    out["decode_attention"] += [_decode_case(dev, randn, *c)
+                                for c in CASCADE_CASES["decode_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, *c)
+                               for c in CASCADE_CASES["flash_attention"]]
     out["rmsnorm"] += [_rmsnorm_case(dev, randn, *c)
                        for c in HYMBA_CASES["rmsnorm"]]
     out["decode_attention"] += [_decode_case(dev, randn, *c)
@@ -644,6 +690,17 @@ def kernel_ops():
             "flash_attention": flash_attention_op, "ssd_scan": ssd_scan_op}
 
 
+def _zero_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for op in kernel_ops().values():
+        op.launches = 0
+
+
+def _counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {name: op.launches for name, op in kernel_ops().items()}
+
+
 def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
           extra=()):
     """16 requests (prompts of 8..max_prompt tokens, 32 new tokens each,
@@ -684,13 +741,12 @@ def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
             decode_s.append(time.perf_counter() - t0)
 
     srv._decode_once = timed_decode
-    for op in kernel_ops().values():
-        op.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     srv.run(params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: op.launches for name, op in kernel_ops().items()}
+    launches = _counts()
     for name in ops:
         if launches[name] <= 0:
             raise AssertionError(f"{name}: no kernel launch on the main path")
@@ -1021,12 +1077,11 @@ def run_quickstart(dev):
         "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    for op in kernel_ops().values():
-        op.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     srv = mod.main(["--device", str(dev)])
     wall = time.perf_counter() - t0
-    launches = {name: op.launches for name, op in kernel_ops().items()}
+    launches = _counts()
     for name in ("rmsnorm", "decode_attention", "flash_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"quickstart: no {name} launch")
@@ -1247,36 +1302,27 @@ def scenario_lmserver(dev):
     each kernel's count set to 0 just before and rising) and on the CPU,
     reports equal but ``engine.attention_backend`` and
     ``engine.decode.graph``; then full-width smollm-360m through the same
-    runner (a subclass with the full config), its fields that differ from
-    the reduced run's report listed."""
+    runner (``build_lmserver(cfg=)``), its fields that differ from the
+    reduced run's report listed."""
     from repro_torch.configs.registry import ARCHITECTURES
     from repro_torch.workloads.scenario import SCENARIOS, ScenarioRunner
 
-    class Keep(ScenarioRunner):
-        def build_lmserver(self, *, admission=None):
-            built = super().build_lmserver(admission=admission)
-            self.srv = built[0]
-            return built
-
-    class FullWidth(Keep):
-        def lm_config(self):
-            return ARCHITECTURES["smollm-360m"]
-
     sc = SCENARIOS["poisson"]
     runs = {}
-    for tag, runner in (("reduced", Keep(sc, device=dev)),
-                        ("full", FullWidth(sc, device=dev))):
-        for op in kernel_ops().values():
-            op.launches = 0
+    for tag, cfg in (("reduced", None),
+                     ("full", ARCHITECTURES["smollm-360m"])):
+        runner = ScenarioRunner(sc, device=dev)
+        _zero_counts()
         t0 = time.perf_counter()
-        rep = runner.run("lmserver")
+        built = runner.build_lmserver(cfg=cfg)
+        rep = runner.drive_lmserver(*built)
         wall = time.perf_counter() - t0
-        launches = {name: op.launches for name, op in kernel_ops().items()}
+        srv = built[0]
+        launches = _counts()
         for name in ("rmsnorm", "decode_attention", "flash_attention"):
             if launches[name] <= 0:
                 raise AssertionError(f"scenario lmserver ({tag}): no {name} "
                                      f"launch")
-        srv = runner.srv
         if (srv.graph_replays != srv.decode_steps - 1
                 or not rep["engine"]["decode"]["graph"]):
             raise AssertionError(f"scenario lmserver ({tag}): "
@@ -1292,8 +1338,9 @@ def scenario_lmserver(dev):
         runs[tag] = dict(report=rep, wall_s=wall, launches=launches,
                          decode_steps=srv.decode_steps,
                          graph_replays=srv.graph_replays)
+    cpu_runner = ScenarioRunner(sc, device="cpu")
     t0 = time.perf_counter()
-    cpu = ScenarioRunner(sc, device="cpu").run("lmserver")
+    cpu = cpu_runner.drive_lmserver(*cpu_runner.build_lmserver())
     cpu_wall = time.perf_counter() - t0
     card = json.loads(json.dumps(runs["reduced"]["report"]))
     differ = _diff_fields(card, cpu)
@@ -1304,6 +1351,412 @@ def scenario_lmserver(dev):
     runs["full_vs_reduced"] = _diff_fields(runs["full"]["report"],
                                            runs["reduced"]["report"])
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: model composition and the control plane on the card
+# ---------------------------------------------------------------------------
+
+CRASH = "crash:m0:0@0.25:0.9"
+ENGINE_FIELDS = ("engine.attention_backend", "engine.decode.graph")
+
+
+
+def _expect_engine_diff(label, card, cpu, prefixes=("",)):
+    """The card's report equals the CPU's but each tier's engine fields;
+    those say the kernels ran and the decode step replayed from its
+    graph."""
+    card = json.loads(json.dumps(card))
+    cpu = json.loads(json.dumps(cpu))
+    want = sorted(p + f for p in prefixes for f in ENGINE_FIELDS)
+    differ = _diff_fields(card, cpu)
+    if sorted(differ) != want:
+        raise AssertionError(f"{label}: the card's report differs from the "
+                             f"CPU's at {differ}, not only at {want}")
+    for p in prefixes:
+        sec = card
+        for key in p.split(".")[:-1]:
+            sec = sec[key]
+        if (sec["engine"]["attention_backend"] != "kernels"
+                or sec["engine"]["decode"]["graph"] is not True):
+            raise AssertionError(f"{label}: {p}engine says "
+                                 f"{sec['engine']} on the card")
+
+
+def pipelines_on_card(dev):
+    """(a) The ``cascade`` and ``fanout`` pipelines of the pipeline scenario
+    with their Exp4 state on the card and on the CPU, traced: reports and
+    span logs equal byte for byte. Wall ms of each run (host clock; the
+    zoo's models are numpy by the scenario's definition) and the policy
+    state's device-to-host copies per pipeline query on the card."""
+    from repro_torch.obs import Tracer
+    from repro_torch.pipeline import scenario as P
+
+    made = []
+    real = P.build_executor
+
+    def keep(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    rows = []
+    P.build_executor = keep
+    try:
+        for kind in ("cascade", "fanout"):
+            sc = P.pipeline_scenario()
+            docs, wall = {}, {}
+            for tag, d in (("cpu", "cpu"), ("cuda", dev)):
+                tr = Tracer(sample_rate=1.0, seed=sc.seed)
+                t0 = time.perf_counter()
+                rep = P.run_pipeline(sc, kind, tracer=tr, device=d)
+                wall[tag] = 1e3 * (time.perf_counter() - t0)
+                docs[tag] = (json.dumps(rep, sort_keys=True, indent=2),
+                             tr.to_json())
+            if docs["cuda"] != docs["cpu"]:
+                raise AssertionError(f"pipeline {kind}: the card's report or "
+                                     f"span log differs from the CPU's")
+            ex = made[-1]
+            if ex.clip.policy_state.device.type != "cuda":
+                raise AssertionError(f"pipeline {kind}: the policy state is "
+                                     f"not on the card")
+            queries = len(ex.results)
+            rows.append(dict(name=kind, queries=queries,
+                             card_ms=wall["cuda"], cpu_ms=wall["cpu"],
+                             host_copies=ex.clip.policy.host_copies,
+                             copies_per_query=ex.clip.policy.host_copies
+                             / max(queries, 1)))
+    finally:
+        P.build_executor = real
+    return rows
+
+
+def cluster_on_card(dev, tmp):
+    """(b) and (c): ``python -m repro_torch.cluster.run``'s ``main`` on the
+    flash-crowd scenario (seed 0), on the card and on the CPU, every
+    document written (report, span log, time series, audit doc). The
+    frontend and pipeline stacks and the crash fault with and without
+    recovery: the four documents equal byte for byte. The lmserver stack
+    with shedding admission: the kernels ran (counts set to 0 just before,
+    each rising), and the report equals the CPU's but the engine fields,
+    the other documents equal."""
+    from repro_torch.cluster.run import main
+
+    runs = (("frontend", []), ("pipeline", ["--stack", "pipeline"]),
+            ("crash", ["--fault", CRASH]),
+            ("crash, no recovery", ["--fault", CRASH, "--no-recovery"]),
+            ("lmserver, admission shed", ["--stack", "lmserver",
+                                          "--admission", "shed"]))
+    rows = []
+    for label, args in runs:
+        docs, wall = {}, {}
+        for tag, d in (("cpu", "cpu"), ("cuda", str(dev))):
+            files = {k: tmp / f"{tag}.{k}.json"
+                     for k in ("report", "trace", "series", "audit")}
+            argv = ["--scenario", "flash_crowd", "--seed", "0",
+                    "--report-out", str(files["report"]),
+                    "--trace-out", str(files["trace"]),
+                    "--timeseries-out", str(files["series"]),
+                    "--audit-out", str(files["audit"]),
+                    "--device", d] + args
+            if tag == "cuda":
+                _zero_counts()
+            t0 = time.perf_counter()
+            if main(argv) != 0:
+                raise AssertionError(f"cluster {label} ({tag}): exit code")
+            wall[tag] = 1e3 * (time.perf_counter() - t0)
+            if tag == "cuda":
+                launches = _counts()
+            docs[tag] = {k: f.read_text() for k, f in files.items()}
+        rep = json.loads(docs["cuda"]["report"])
+        if "lmserver" in args:
+            for name in ("rmsnorm", "decode_attention", "flash_attention"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"cluster {label}: no {name} launch")
+            _expect_engine_diff(f"cluster {label}", rep,
+                                json.loads(docs["cpu"]["report"]))
+            same = ("trace", "series", "audit")
+        else:
+            same = ("report", "trace", "series", "audit")
+        for k in same:
+            if docs["cuda"][k] != docs["cpu"][k]:
+                raise AssertionError(f"cluster {label}: the card's {k} "
+                                     f"document differs from the CPU's")
+        rows.append(dict(name=label, card_ms=wall["cuda"],
+                         cpu_ms=wall["cpu"],
+                         completed=rep["queries"]["completed"],
+                         submitted=rep["queries"]["submitted"],
+                         faults=rep["faults"], launches=launches
+                         if "lmserver" in args else None))
+    return rows
+
+
+def _timed_tiers(casc):
+    """Wrap each tier's ``step`` and ``_decode_once``: wall seconds of its
+    steps, and ms of each decode step that replayed the graph (the packed
+    tokens' host copy ends each step, so the host clock spans the device
+    work)."""
+    out = {}
+    for tier in ("draft", "verify"):
+        srv = getattr(casc, tier)
+        rec = out[tier] = {"step_s": 0.0, "graph_ms": []}
+
+        def step(params, srv=srv, rec=rec, real=srv.step):
+            t0 = time.perf_counter()
+            real(params)
+            rec["step_s"] += time.perf_counter() - t0
+
+        def decode(params, srv=srv, rec=rec, real=srv._decode_once):
+            n, t0 = srv.graph_replays, time.perf_counter()
+            real(params)
+            if srv.graph_replays > n:
+                rec["graph_ms"].append(1e3 * (time.perf_counter() - t0))
+
+        srv.step, srv._decode_once = step, decode
+    return out
+
+
+def _check_cascade_launches(label, casc, launches, layers):
+    """Both tiers replayed their own graphs, and the counts credited per
+    replay add up across the tiers: per prefill ``layers`` flash launches
+    and ``2 layers + 1`` RMSNorms, per decode step (eager or replayed)
+    ``layers`` decode-attention launches and ``2 layers + 1`` RMSNorms."""
+    tiers = (casc.draft, casc.verify)
+    if casc.draft._graph is casc.verify._graph:
+        raise AssertionError(f"{label}: the tiers share one graph")
+    for srv in tiers:
+        if srv.graph_replays != srv.decode_steps - 1 or not srv.graph_replays:
+            raise AssertionError(f"{label}: tier {srv.model_id} replayed "
+                                 f"{srv.graph_replays} of "
+                                 f"{srv.decode_steps} decode steps")
+    steps = sum(s.decode_steps for s in tiers)
+    prefills = sum(s.prefill_dispatches for s in tiers)
+    want = {"decode_attention": layers * steps,
+            "flash_attention": layers * prefills,
+            "rmsnorm": (2 * layers + 1) * (steps + prefills)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"({steps} decode steps, {prefills} prefills)")
+
+
+def _bf16_ulp(x):
+    """Spacing of bf16 values (8 significant bits) at magnitude ``x``."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
+
+
+def _record_logits(casc):
+    """Per tier, the logits row each request's tokens were sampled from (a
+    run whose step is eager: on the CPU, or on the card under ``_eager``):
+    wraps the engine's ``sample`` and each tier's ``_admit`` and
+    ``_decode_once``. A prefill's row i belongs to the i-th admitted slot
+    in slot order, a decode step's row s to the request in slot s. Returns
+    ``(rows, undo)``."""
+    from repro_torch.serving import engine as E
+
+    calls, rows = [], {"draft": {}, "verify": {}}
+    real_sample = E.sample
+
+    def sample(logits, gen, **kw):
+        calls.append(logits.float().cpu().numpy())
+        return real_sample(logits, gen, **kw)
+
+    def wrap(srv, per_req):
+        admit, decode = srv._admit, srv._decode_once
+
+        def rec_admit(params):
+            before, n = set(srv._active), len(calls)
+            admit(params)
+            if len(calls) > n:
+                new = sorted(s for s in srv._active if s not in before)
+                for i, s in enumerate(new):
+                    per_req.setdefault(srv._active[s].request_id,
+                                       []).append(calls[-1][i])
+
+        def rec_decode(params):
+            slots = {s: r.request_id for s, r in srv._active.items()}
+            n = len(calls)
+            decode(params)
+            if len(calls) > n:
+                for s, rid in slots.items():
+                    per_req[rid].append(calls[-1][s])
+
+        srv._admit, srv._decode_once = rec_admit, rec_decode
+
+    E.sample = sample
+    for tier in rows:
+        wrap(getattr(casc, tier), rows[tier])
+
+    def undo():
+        E.sample = real_sample
+        for tier in rows:
+            srv = getattr(casc, tier)
+            del srv._admit, srv._decode_once
+    return rows, undo
+
+
+def _streams(casc):
+    return {tier: {rid: list(r.tokens) for rid, r in
+                   getattr(casc, tier).completed.items()}
+            for tier in ("draft", "verify")}
+
+
+def _stream_divergence(label, card, cpu, rows):
+    """``card``, ``cpu``: per tier, request id -> greedy tokens; ``rows``:
+    per device the logits rows they were sampled from. Each device's
+    tokens are its own rows' argmax, and each card stream equals the CPU's
+    up to the first step where they part (or to its end). Returns the
+    largest card-vs-CPU logit difference over the CPU row's largest
+    |logit| across every step up to and including that one (the steps
+    whose inputs the two devices share), and each parting: tier, request,
+    step and the CPU's gap between the two tokens in bf16 ulps."""
+    worst, parts = 0.0, []
+    for tier in ("draft", "verify"):
+        if sorted(card[tier]) != sorted(cpu[tier]):
+            raise AssertionError(f"{label}: the {tier} tier served other "
+                                 f"requests on the card")
+        for rid, wt in cpu[tier].items():
+            gt, rc, rg = card[tier][rid], rows["cpu"][tier][rid], \
+                rows["card"][tier][rid]
+            for who, toks, rr in (("CPU", wt, rc), ("card", gt, rg)):
+                if [int(r.argmax()) for r in rr] != toks:
+                    raise AssertionError(f"{label}: the {who}'s recorded "
+                                         f"logits do not give {tier} "
+                                         f"request {rid}'s tokens")
+            if len(gt) != len(wt):
+                raise AssertionError(f"{label}: {tier} request {rid} has "
+                                     f"{len(gt)} tokens on the card, "
+                                     f"{len(wt)} on the CPU")
+            k = next((i for i, (a, b) in enumerate(zip(wt, gt)) if a != b),
+                     len(wt) - 1)
+            for i in range(k + 1):
+                worst = max(worst, float(abs(rg[i] - rc[i]).max()
+                                         / abs(rc[i]).max()))
+            if wt[k] != gt[k]:
+                a, b = wt[k], gt[k]
+                gap = float(rc[k][a] - rc[k][b])
+                parts.append(dict(tier=tier, request=rid, step=k,
+                                  gap_ulps=gap / _bf16_ulp(float(
+                                      max(abs(rc[k][a]), abs(rc[k][b]))))))
+    return worst, parts
+
+
+def lmcascade_on_card(dev):
+    """(d) The pipeline scenario's ``lmcascade`` (the reduced smollm in both
+    tiers, threshold 0.9) on the card and on the CPU, traced, sampled and
+    audited, through ``build_lmcascade`` / ``drive_lmcascade``: the
+    reports equal but each tier's engine fields, the other documents and
+    each request's tier equal; counts set to 0 just before, and the
+    launches add up across both tiers' graphs. Then once more on the card
+    with both tiers' steps eager, recording the logits (as on the CPU run):
+    its streams equal the graphed run's, and each stream equals the CPU's
+    up to the first step where they part, where the two devices' logits
+    still agree within ``CASCADE_LOGIT_TOL`` (each device picks its own
+    best logit; the partings are printed). (e) The same cascade at full
+    width: smollm-360m (seeded random weights, bf16) in both tiers."""
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.obs import AuditLog, BurnRateMonitor, FleetSampler, Tracer
+    from repro_torch.pipeline.scenario import (build_lmcascade,
+                                               drive_lmcascade,
+                                               pipeline_scenario)
+
+    sc = pipeline_scenario()
+    tiers = ("cascade.draft.", "cascade.verify.")
+    out, docs, streams, rows = {}, {}, {}, {}
+    # "card": the card once more with both tiers' steps eager, so that its
+    # logits can be read (a graph's cannot)
+    for tag, d in (("cpu", "cpu"), ("cuda", dev), ("card", dev)):
+        tr = Tracer(sample_rate=1.0, seed=sc.seed)
+        sa = FleetSampler(interval=0.05, monitor=BurnRateMonitor())
+        au = AuditLog()
+        casc, clock, params, pending = build_lmcascade(
+            sc, tracer=tr, audit=au, device=d)
+        if tag == "card":
+            _eager(casc.draft)
+            _eager(casc.verify)
+        if tag == "cuda":
+            _zero_counts()
+        else:
+            rows[tag], undo = _record_logits(casc)
+        t0 = time.perf_counter()
+        rep = drive_lmcascade(sc, casc, clock, params, pending, sampler=sa)
+        wall = time.perf_counter() - t0
+        streams[tag] = _streams(casc)
+        if tag == "cuda":
+            launches = _counts()
+            _check_cascade_launches("lmcascade (reduced)", casc, launches,
+                                    casc.draft.model.cfg.num_layers)
+            out["reduced"] = dict(wall_s=wall, launches=launches,
+                                  escalated=casc.escalated)
+        else:
+            undo()
+        if tag == "cpu":
+            out["cpu_wall_s"] = wall
+        if tag != "card":
+            docs[tag] = (rep, tr.to_json(), sa.to_json(), au.to_json(),
+                         {c: r["tier"] for c, r in casc.results.items()})
+    _expect_engine_diff("lmcascade (reduced)", docs["cuda"][0],
+                        docs["cpu"][0], tiers)
+    for k, what in enumerate(("span log", "time series", "audit doc",
+                              "tiers"), 1):
+        if docs["cuda"][k] != docs["cpu"][k]:
+            raise AssertionError(f"lmcascade (reduced): the card's {what} "
+                                 f"differs from the CPU's")
+    if streams["card"] != streams["cuda"]:
+        raise AssertionError("lmcascade (reduced): the eager steps' streams "
+                             "differ from the graphed steps'")
+    worst, parts = _stream_divergence("lmcascade (reduced)", streams["cuda"],
+                                      streams["cpu"], rows)
+    if worst > CASCADE_LOGIT_TOL:
+        raise AssertionError(f"lmcascade (reduced): card vs CPU logits: max "
+                             f"|diff| / max |logit| = {worst} > "
+                             f"{CASCADE_LOGIT_TOL} before the streams part "
+                             f"({parts})")
+    out["reduced"].update(logit_rel_diff=worst, partings=parts)
+
+    cfg = ARCHITECTURES["smollm-360m"]
+    t0 = time.perf_counter()
+    casc, clock, params, pending = build_lmcascade(sc, device=dev, cfg=cfg)
+    build_s = time.perf_counter() - t0
+    timed = _timed_tiers(casc)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = drive_lmcascade(sc, casc, clock, params, pending)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    for name in ("rmsnorm", "decode_attention", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"lmcascade (full width): no {name} launch")
+    _check_cascade_launches("lmcascade (full width)", casc, launches,
+                            cfg.num_layers)
+    for p in tiers:
+        sec = rep["cascade"][p.split(".")[1]]
+        if sec["engine"]["decode"]["graph"] is not True:
+            raise AssertionError(f"lmcascade (full width): {p}engine."
+                                 f"decode.graph is not true")
+    if rep["queries"]["completed"] != sc.lm_requests or len(
+            casc.results) != sc.lm_requests:
+        raise AssertionError("lmcascade (full width): not every request "
+                             "completed")
+    per_tier = {}
+    for tier in ("draft", "verify"):
+        srv = getattr(casc, tier)
+        toks = [t for r in srv.completed.values() for t in r.tokens]
+        if any(not 0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"lmcascade (full width): a {tier} token "
+                                 f"outside the vocabulary")
+        g = timed[tier]["graph_ms"]
+        per_tier[tier] = dict(
+            served=len(srv.completed), tokens=len(toks),
+            decode_steps=srv.decode_steps, graph_replays=srv.graph_replays,
+            prefills=srv.prefill_dispatches,
+            graph_ms_per_step=sum(g) / len(g), step_s=timed[tier]["step_s"],
+            tokens_per_s=len(toks) / timed[tier]["step_s"])
+    out["full"] = dict(build_s=build_s, wall_s=wall, launches=launches,
+                       escalated=casc.escalated,
+                       escalation_rate=rep["cascade"]["escalation_rate"],
+                       requests=sc.lm_requests, tiers=per_tier)
+    return out
 
 
 def report_path(label, run, rungs, prof, parity, per_prefill, per_step,
@@ -1433,6 +1886,47 @@ def phases(dev):
     log(f"frontend, store and scenario phases: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # model composition and the control plane
+    t0 = time.perf_counter()
+    for r in pipelines_on_card(dev):
+        log(f"pipeline {r['name']}: card report and span log == CPU's; "
+            f"{r['queries']} pipeline queries, wall {r['card_ms']:.3f} ms "
+            f"on the card, {r['cpu_ms']:.3f} ms on the CPU; policy-state "
+            f"device-to-host copies {r['host_copies']} "
+            f"({r['copies_per_query']} per pipeline query)")
+    with tempfile.TemporaryDirectory() as tmp:
+        crows = cluster_on_card(dev, Path(tmp))
+    for r in crows:
+        log(f"cluster.run flash_crowd {r['name']}: card documents == CPU's"
+            f"{' but the engine fields' if r['launches'] else ''}; "
+            f"{r['completed']} of {r['submitted']} completed, faults "
+            f"{r['faults']}; wall {r['card_ms']:.3f} ms on the card, "
+            f"{r['cpu_ms']:.3f} ms on the CPU"
+            + (f"; launches {r['launches']}" if r["launches"] else ""))
+    casc = lmcascade_on_card(dev)
+    r = casc["reduced"]
+    log(f"lmcascade (reduced) on the card: {r['wall_s']:.3f} s "
+        f"(CPU {casc['cpu_wall_s']:.3f} s), {r['escalated']} escalated; "
+        f"report == CPU's but each tier's engine fields, span log, time "
+        f"series, audit doc and tiers == CPU's; streams == CPU's up to "
+        f"the partings {r['partings']}, logits within "
+        f"{r['logit_rel_diff']} of the largest until there; launches "
+        f"{r['launches']}")
+    f = casc["full"]
+    log(f"lmcascade (full width smollm-360m, both tiers): build "
+        f"{f['build_s']:.3f} s, drive {f['wall_s']:.3f} s; "
+        f"{f['escalated']} of {f['requests']} escalated (rate "
+        f"{f['escalation_rate']}); launches {f['launches']}")
+    for tier, r in f["tiers"].items():
+        log(f"lmcascade (full width) {tier}: {r['served']} served, "
+            f"{r['tokens']} tokens, {r['prefills']} prefills, "
+            f"{r['decode_steps']} decode steps ({r['graph_replays']} "
+            f"replayed from its graph) at {r['graph_ms_per_step']:.3f} ms "
+            f"per graphed step; {r['tokens_per_s']:.1f} tokens/s over "
+            f"{r['step_s']:.3f} s of its steps")
+    log(f"model composition and control plane phases: "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # the dense path: full-width smollm-360m
     t0 = time.perf_counter()
     cfg = ARCHITECTURES["smollm-360m"]
@@ -1499,7 +1993,12 @@ def phases(dev):
                    "scenario poisson lmserver":
                        lm["reduced"]["launches"][kname],
                    "scenario poisson lmserver, full width":
-                       lm["full"]["launches"][kname]}
+                       lm["full"]["launches"][kname],
+                   "cluster lmserver, admission shed":
+                       crows[-1]["launches"][kname],
+                   "pipeline lmcascade": casc["reduced"]["launches"][kname],
+                   "pipeline lmcascade, full width":
+                       casc["full"]["launches"][kname]}
         kernels.append(dict(
             name=kname, route=route, source=source, replaces=REPLACES[kname],
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -13,8 +13,8 @@ packages' documents compare byte for byte.
   deterministic fire/resolve events;
 * ``AuditLog`` — every autoscaler/admission/router/fault decision with
   its decision-time evidence (``repro.audit/v1``);
-* the reference's ``python -m repro.obs.export`` converts these documents
-  to Chrome ``trace_event`` (and CSV); the port has no copy of it yet.
+* ``python -m repro_torch.obs.export`` — Chrome ``trace_event`` (and CSV)
+  conversion for flamegraph / counter-track inspection of any seeded run.
 """
 
 from repro_torch.obs.audit import AUDIT_SCHEMA, AuditLog

@@ -170,6 +170,14 @@ def sampled_replay(serve, submit, trace, sampler) -> None:
         sampler.sample_until(t)
 
 
+def lm_config():
+    """The LM the lmserver stack and the LM cascade serve: smollm-360m,
+    reduced as the reference reduces it (2 layers, d_model 64, head_dim
+    16)."""
+    return reduced_config(ARCHITECTURES["smollm-360m"], num_layers=2,
+                          d_model=64)
+
+
 class ScenarioRunner:
     """Replays one scenario through a serving stack; ``run`` returns the
     shared-schema report dict, ``run_json`` its stable JSON rendering."""
@@ -209,25 +217,18 @@ class ScenarioRunner:
         return clip.report()
 
     # -- lmserver (continuous batching) ---------------------------------
-    def lm_config(self):
-        """The LM the lmserver stack serves: smollm-360m, reduced as the
-        reference reduces it (2 layers, d_model 64, head_dim 16)."""
-        return reduced_config(ARCHITECTURES["smollm-360m"], num_layers=2,
-                              d_model=64)
-
-    def build_lmserver(self, *, admission=None):
+    def build_lmserver(self, *, admission=None, cfg=None):
         """Construct the calibrated-simulation LMServer for this scenario.
         Returns ``(srv, clock, params, pending)`` where ``pending`` is the
         arrival list ``[(time, prompt)]`` — the control-plane driver reuses
-        this to run the same stack with admission control in front. The
+        this to run the same stack with admission control in front.
+        ``cfg``: the served model (default :func:`lm_config`). The
         weights are drawn on the CPU from a generator seeded with the
         scenario's seed and then moved to the runner's device, so a card
         run and a CPU run serve the same weights."""
         s = self.scenario
-        cfg = self.lm_config()
-        host = build_model(cfg, device="cpu")
-        params = _to(host.init(torch.Generator().manual_seed(s.seed)),
-                     self.device)
+        cfg = lm_config() if cfg is None else cfg
+        params = seeded_params(cfg, s.seed, self.device)
         model = build_model(cfg, device=self.device)
 
         def service_model(kind: str, batch: int, tokens: int) -> float:
@@ -256,8 +257,12 @@ class ScenarioRunner:
         """Calibrated simulation: a tiny real model decodes for real, but
         service times come from a seeded latency model through a virtual
         clock — deterministic end to end."""
+        return self.drive_lmserver(*self.build_lmserver(admission=admission))
+
+    def drive_lmserver(self, srv, clock, params, pending) -> Dict[str, Any]:
+        """Replay ``pending`` through ``srv`` on the virtual clock; returns
+        the server's report."""
         s = self.scenario
-        srv, clock, params, pending = self.build_lmserver(admission=admission)
         if self.sampler is not None:
             self.sampler.bind(metrics=srv.metrics, tracer=self.tracer)
             self.sampler.add_probe(srv.timeseries_probe)
@@ -305,6 +310,14 @@ def run_scenario(name: str, stack: str = "frontend", *, tracer=None,
     sc = dataclasses.replace(SCENARIOS[name], **overrides)
     return ScenarioRunner(sc, tracer=tracer, sampler=sampler,
                           audit=audit, device=device).run(stack)
+
+
+def seeded_params(cfg, seed: int, device):
+    """``cfg``'s weights drawn on the CPU from a generator seeded with
+    ``seed``, then moved to ``device``: a card run and a CPU run serve the
+    same weights."""
+    host = build_model(cfg, device="cpu")
+    return _to(host.init(torch.Generator().manual_seed(seed)), device)
 
 
 def _to(tree, device):

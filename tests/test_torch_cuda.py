@@ -1,6 +1,8 @@
 """The port's kernels on the card, each against its plain PyTorch version,
 and ``LMServer`` on the card: its fused decode step replayed from a CUDA
-graph against the same step run eagerly.
+graph against the same step run eagerly; the stacks that drive it (the
+scenario runner, the LM cascade's two tiers, the control plane's lmserver
+stack) on the card against the CPU.
 
 Marked ``cuda``: where ``torch.cuda.is_available()`` is false each test
 skips with that reason. The file imports no JAX, so it runs on a machine
@@ -15,6 +17,7 @@ the ssd_scan kernel, stated at its test."""
 
 import pytest
 import torch
+from _torch_ties import record_logits, stream_divergence
 
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -26,6 +29,12 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 BF16_ULP = 2.0 ** -7
+# the LM cascade's reduced smollm (2 layers, d_model 64, bf16), card vs
+# CPU plain path at the steps whose inputs the two share: logits within
+# this share of the CPU row's largest |logit|, about twice the largest
+# difference seen on an H100 (1.35 %); a greedy stream may part from the
+# CPU's where its two best logits lie closer than that
+CASCADE_LOGIT_TOL = 0.03
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +94,10 @@ DECODE_CASES = [
     # a window narrower than a block's share of Smax (256 / 8)
     (8, 15, 5, 64, 256, [0, 5, 20, 21, 100, 255, 256, 37], 20),
     (8, 15, 5, 64, 2048, [0, 1, 300, 1024, 2047, 2048, 1500, 700], 0),
+    # the LM cascade at full width: Smax 64 splits each (kv head, sample)
+    # over 4 blocks of 2 warps
+    (4, 15, 5, 64, 64, [0, 9, 33, 64], 0),
+    (4, 15, 5, 64, 64, [8, 11, 15, 16], 0),
     (3, 6, 2, 20, 50, [50, 7, 33], 0),             # D % 8: 4-byte loads
     (2, 8, 1, 100, 40, [40, 3], 0),                # G = 8, D = 100: 2 a lane
     (2, 16, 2, 128, 1000, [1000, 517], 0),         # G = 8, four warps
@@ -679,3 +692,111 @@ def test_lmserver_scenario_on_card_matches_cpu(dev):
     assert cpu["engine"]["decode"].pop("graph") is False
     cpu["engine"]["attention_backend"] = "kernels"
     assert json.dumps(card, sort_keys=True) == json.dumps(cpu, sort_keys=True)
+
+
+def _engine_free(rep, sections):
+    """A report with each named section's two engine fields taken out,
+    after checking what they say."""
+    import json
+
+    rep = json.loads(json.dumps(rep))
+    seen = []
+    for path in sections:
+        sec = rep
+        for key in path:
+            sec = sec[key]
+        seen.append((sec["engine"].pop("attention_backend"),
+                     sec["engine"]["decode"].pop("graph")))
+    return rep, seen
+
+
+def test_lmcascade_on_card_matches_cpu(dev):
+    """The pipeline scenario's reduced lmcascade: two ``LMServer`` tiers on
+    one card, both given the one params tree, each capturing and replaying
+    its own decode graph (the verify tier captures while the draft's graph
+    exists). The report equals the CPU run's but each tier's engine fields,
+    so do each request's tier and the span log; the launches credited per
+    replay add up across the tiers. A third run on the card with both
+    tiers' steps eager, whose logits can be read (a graph's cannot), gives
+    the graphed run's streams; each stream equals the CPU's up to the
+    first step where they part, and up to there the two devices' logits
+    agree within ``CASCADE_LOGIT_TOL``."""
+    from repro_torch.obs import Tracer
+    from repro_torch.pipeline.scenario import (build_lmcascade,
+                                               drive_lmcascade,
+                                               pipeline_scenario)
+    from repro_torch.serving import engine as torch_engine
+
+    sc = pipeline_scenario()
+    ops = {"rmsnorm": rmsnorm_op, "decode_attention": decode_attention_op,
+           "flash_attention": flash_attention_op}
+    runs, logits = {}, {}
+    for tag, d in (("cpu", "cpu"), ("cuda", dev), ("eager", dev)):
+        tr = Tracer(sample_rate=1.0, seed=sc.seed)
+        casc, clock, params, pending = build_lmcascade(sc, tracer=tr,
+                                                       device=d)
+        with pytest.MonkeyPatch.context() as mp:
+            if tag != "cuda":
+                logits[tag] = [record_logits(
+                    mp, srv, torch_engine,
+                    lambda x, out: out.append(x.float().cpu().numpy()),
+                    lambda: None) for srv in (casc.draft, casc.verify)]
+            if tag == "eager":
+                for srv in (casc.draft, casc.verify):
+                    mp.setattr(srv, "_decode_device",
+                               lambda p, srv=srv: srv._decode_fused(
+                                   p, *srv._slot_state()))
+            before = {k: op.launches for k, op in ops.items()}
+            rep = drive_lmcascade(sc, casc, clock, params, pending)
+        runs[tag] = (rep, tr.to_json(), casc,
+                     {k: op.launches - before[k] for k, op in ops.items()})
+    tiers = (("cascade", "draft"), ("cascade", "verify"))
+    cpu, seen_cpu = _engine_free(runs["cpu"][0], tiers)
+    card, seen_card = _engine_free(runs["cuda"][0], tiers)
+    assert seen_cpu == [("plain", False)] * 2
+    assert seen_card == [("kernels", True)] * 2
+    assert card == cpu
+    assert runs["cuda"][1] == runs["cpu"][1]
+    casc, launches = runs["cuda"][2], runs["cuda"][3]
+    assert ({c: r["tier"] for c, r in casc.results.items()}
+            == {c: r["tier"] for c, r in runs["cpu"][2].results.items()})
+    for i, tier in enumerate(("draft", "verify")):
+        cpu_s, card_s, eager_s = (
+            {rid: r.tokens for rid, r in
+             getattr(runs[t][2], tier).completed.items()}
+            for t in ("cpu", "cuda", "eager"))
+        assert eager_s == card_s, tier
+        worst, _ = stream_divergence(cpu_s, eager_s, logits["cpu"][i],
+                                     logits["eager"][i])
+        assert worst <= CASCADE_LOGIT_TOL, (tier, worst)
+    assert 0 < casc.escalated < sc.lm_requests
+    srvs = (casc.draft, casc.verify)
+    assert srvs[0]._graph is not None and srvs[1]._graph is not None
+    assert srvs[0]._graph is not srvs[1]._graph
+    for srv in srvs:
+        assert srv.graph_replays == srv.decode_steps - 1 > 0
+    L = casc.draft.model.cfg.num_layers
+    steps = sum(s.decode_steps for s in srvs)
+    prefills = sum(s.prefill_dispatches for s in srvs)
+    assert launches == {"decode_attention": L * steps,
+                        "flash_attention": L * prefills,
+                        "rmsnorm": (2 * L + 1) * (steps + prefills)}
+
+
+def test_cluster_lmserver_stack_on_card_matches_cpu(dev):
+    """The control plane's lmserver stack with shedding admission on the
+    card: the decode step replays from its graph, and the report is the
+    CPU run's but the engine fields."""
+    from repro_torch.cluster.plan import (ClusterPlan, cluster_scenario,
+                                          run_plan)
+
+    sc = cluster_scenario("flash_crowd", seed=0)
+    reps = [run_plan(ClusterPlan(scenario=sc, stack="lmserver",
+                                 admission="shed", device=d))
+            for d in ("cpu", dev)]
+    cpu, seen_cpu = _engine_free(reps[0], ((),))
+    card, seen_card = _engine_free(reps[1], ((),))
+    assert seen_cpu == [("plain", False)]
+    assert seen_card == [("kernels", True)]
+    assert card == cpu
+    assert card["admission"]["shed"] > 0

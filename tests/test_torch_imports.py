@@ -30,14 +30,18 @@ print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 # modules the guard must find (and import without loading JAX): the
-# frontend stack, the obs layer, the scenario CLI and the hybrid family
+# frontend stack, the obs layer, the scenario CLI, the hybrid family, the
+# pipelines, the control plane, faults, the exporter and the validator
 # among them
 MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.core.context", "repro_torch.core.straggler",
         "repro_torch.core.cache", "repro_torch.core.containers",
         "repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.obs.cli",
         "repro_torch.workloads.scenario", "repro_torch.workloads.run",
-        "repro_torch.models.hymba")
+        "repro_torch.models.hymba", "repro_torch.pipeline.cascade",
+        "repro_torch.pipeline.scenario", "repro_torch.cluster.plan",
+        "repro_torch.faults.plan", "repro_torch.obs.export",
+        "repro_torch.metrics.validate")
 
 
 def _env():

@@ -18,7 +18,7 @@ import jax
 import numpy as np
 import pytest
 
-from _torch_parity import assert_streams_within_ties, record_logits
+from _torch_ties import assert_streams_within_ties, record_logits
 
 from repro.obs import AuditLog as JAuditLog
 from repro.obs import BurnRateMonitor as JBurnRateMonitor

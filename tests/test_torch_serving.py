@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (assert_streams_within_ties, build_pair, mesh_rules,
-                           record_logits)
+from _torch_parity import build_pair, mesh_rules
+from _torch_ties import assert_streams_within_ties, record_logits
 
 from repro.core.metrics import VirtualClock
 from repro.serving.engine import LMServer as JLMServer
