@@ -25,8 +25,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    heads on a ragged rung-2048 batch and on a 3072-token prompt with
    window 2048; ssd_scan at dk=16 dv=64 H=25) and for the full-width LM
    cascade's (decode at Smax=64, 4 blocks of 2 warps per (kv head,
-   sample); flash at rung 8 with 2 and 4 prompts), appended to each
-   kernel's cases;
+   sample); flash at rung 8 with 2 and 4 prompts), and for phases 10-12's
+   (``FAMILY_CASES``: flash non-causal and at G = 7 and G = 6 with D =
+   128, decode at G = 1, 7 and 6, RMSNorm at d = 1024, 896 and 6144),
+   appended to each kernel's cases;
 2b. the Clipper frontend stack: every named scenario with its selection
    state on the card and on the CPU, reports equal byte for byte (wall ms
    of each, policy-state device-to-host copies per query); a 1,048,576 x 4
@@ -95,7 +97,33 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    against fused; logits and every conv and SSD state leaf against the
    CPU's plain path, at full width on a short batch and, cut to 2 layers
    (one global, one sliding-window), on the exact 3072-token prompt;
-10. print the figures, the card's name and power limit, one ``kernels`` JSON
+10. the encoder-decoder path, full-width seamless-m4t-medium (12 + 12
+   layers, 16 / 16 heads of 64): ``model.prefill`` over seeded fp32 frames
+   [8, 1024, 1024] and decoder prompts of 8-128 tokens on the ladder ->
+   ``batched_scatter`` into 8 slots of max_len 1024 -> the fused decode
+   step, eager once, then captured and replayed (32 steps; the counts set
+   to 0 just before the prefill, each rising); the same steps eager, the
+   streams equal; again with frames of 512 rows (the memory padded into
+   the 1024-row slot cache, its zero rows checked); the profile, eager
+   against graphed ms per step in turns, prefill ms per decoder rung; card
+   against the CPU's plain path on 64 frames;
+11. the vision-prefixed path, full-width internvl2-1b (24 layers, 14 / 2
+   heads of 64): phases 3-6 on text through ``LMServer`` (as the
+   reference serves it; max_len 256), then 1024 seeded prefix rows + 1024
+   text tokens, B=4 (S=2048) -> slots of max_len 2112 -> the graphed fused
+   step as in 10; card against the CPU on text and with 64 prefix rows;
+12. the mixture-of-experts path, dbrx-132b at full width (d_model 6144,
+   48 / 8 heads of 128, 16 experts top-4) cut to 4 of its 40 layers:
+   phases 3-6 through ``LMServer`` with prompts of 32-256 tokens in
+   same-length groups (no ladder), max_len 512, with ``fused=False``
+   against fused; card against the CPU cut to 1 layer (2 prompts of 16
+   tokens, 4 decode steps; the card routes by its own router, whose
+   expert choices may differ from the CPU's only at a router near-tie,
+   ``ROUTER_NEAR``, where it then takes the CPU's; on the CPU's input its
+   router weights agree within ``ROUTER_P_TOL``); the attention kernels and RMSNorm
+   are also held against their plain versions at these three families'
+   shapes in phase 2;
+13. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -154,6 +182,23 @@ STATE_TOL = {"xlstm-125m": 0.015, "hymba-1.5b": 0.12,
 # most this many times as far from it as the CPU's bf16 path, logits and
 # each state leaf (seen: 1.21 at full width, 1.11 on the 2-layer cut)
 ANCHOR_RATIO = 2.0
+# card vs CPU plain path, the encdec, vlm and moe families, about twice
+# the largest difference seen on an H100: seamless-m4t-medium (12 + 12
+# layers, 64 frames) 1.88 %, internvl2-1b (24 layers) 1.99 % on text and
+# 2.12 % with 64 prefix rows, dbrx-132b cut to one layer 0.64 % (decode
+# steps)
+LOGIT_TOL.update({"seamless-m4t-medium": 0.04, "internvl2-1b": 0.04,
+                  "internvl2-1b prefixed": 0.045, "dbrx-132b 1 layer": 0.015})
+# a moe token may be routed otherwise on the card than on the CPU only
+# where the CPU's k-th and (k+1)-th router probabilities lie closer than
+# this: the router's bf16 input differs between the devices by a rounding
+# here and there, which moves a probability by far less
+ROUTER_NEAR = 2.0 ** -8
+# the router on the card against the CPU's on the same input: each top-k
+# weight within this share of the row's largest sum_i |x_i w_ie|. Summing a
+# d-long fp32 product in another order moves a logit by about 2**-25 of
+# that sum; TF32 inputs (10-bit mantissas) would move it by about 2**-17
+ROUTER_P_TOL = 2.0 ** -20
 # card vs CPU plain path, the LM cascade's reduced smollm (2 layers,
 # d_model 64, head_dim 16, bf16) at the steps whose inputs the two devices
 # share: logits within this share of the CPU row's largest |logit|, about
@@ -373,41 +418,51 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
                   sdpa(q, k, v, mask)))
 
 
-def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0):
+def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
+                Sk=None):
     """``lens`` None: an exact prompt (no kv_valid); ``window`` > 0: each
-    row attends to its last ``window`` keys."""
+    row attends to its last ``window`` keys; ``causal`` False: every row
+    attends every key below kv_valid (an encoder; with ``Sk`` keys, a
+    cross-attention of S query rows over a memory of Sk rows)."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import geometry
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+    Sk = Sk or S
     q = randn((B, S, Hq, D))
-    k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    k, v = randn((B, Sk, Hkv, D)), randn((B, Sk, Hkv, D))
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device=dev)
-    kw = dict(window=window, kv_valid=kv)
+    kw = dict(window=window, kv_valid=kv, causal=causal)
     got = flash_attention_op(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     case = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
-            + (f" window={window}" if window else ""))
+            + (f" window={window}" if window else "")
+            + ("" if causal else f" non-causal Sk={Sk}"))
     err = check("flash_attention", got, want, case)
     # keys each row attends: causal, within the window, below kv_valid
-    lens = [S] * B if lens is None else lens
-    n_valid = sum(max(0, min(r, n - 1) - max(0, r - window + 1 if window
-                                             else 0) + 1)
-                  for n in lens for r in range(S)) * Hq
+    lens = [Sk] * B if lens is None else lens
+    if causal:
+        n_valid = sum(max(0, min(r, n - 1) - max(0, r - window + 1 if window
+                                                 else 0) + 1)
+                      for n in lens for r in range(S)) * Hq
+    else:
+        n_valid = sum(lens) * S * Hq
     # bytes: q read and out written for every row; K and V rows below
     # kv_valid (every such key is in its own row's window); a sample
     # with kv_valid == 0 reads only V, the mean over the key blocks the
     # plain path visits, all S rows at S <= 512
-    kv_rows = sum(2 * n if n else S for n in lens)
+    kv_rows = sum(2 * n if n else Sk for n in lens)
     nbytes = (2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2
               + (0 if kv is None else B * 4))
-    pos = torch.arange(S, device=dev)
-    mask = (pos[None, :] <= pos[:, None])
+    pos, kpos = torch.arange(S, device=dev), torch.arange(Sk, device=dev)
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = kpos[None, :] <= pos[:, None] + (Sk - S)
     if window:
-        mask = mask & (pos[None, :] > pos[:, None] - window)
-    mask = (mask[None] & (pos[None, None, :] < torch.tensor(
+        mask = mask & (kpos[None, :] > pos[:, None] + (Sk - S) - window)
+    mask = (mask[None] & (kpos[None, None, :] < torch.tensor(
         lens, device=dev)[:, None, None]))[:, None]
     geo = geometry(B, S, Hq, Hkv, D)
     return dict(
@@ -461,6 +516,44 @@ HYMBA_CASES = {
         (8, 2048, 25, 5, 64, [2048, 1600, 1030, 2048, 600, 1280, 2040,
                               2035]),
         (1, 3072, 25, 5, 64, None, 2048)],
+}
+
+
+# the encdec, vlm and moe families at full width. seamless-m4t-medium (16
+# / 16 heads of 64, d_model 1024; 8 slots, max_len 1024, frames of 1024 and 512
+# rows, decoder prompts of 8-128 on the ladder): the encoder's non-causal
+# flash (B 8, S 1024), the decoder's cross-attention over the memory (Sq
+# 128 against 1024, no kv_valid) and its causal self-attention at rung
+# 128; decode at G = 1 against the self cache and against the 1024-row
+# memory (every row counts, padding included). internvl2-1b (14 / 2 heads
+# of 64, d_model 896): text served at max_len 256 (flash on a ragged rung
+# 256, decode at Smax 256) and the prefixed batch (B 4, 1024 prefix rows +
+# 1024 text tokens: flash at S 2048, decode at Smax 2112 in the 8-slot
+# server that holds the 4 rows, at lengths 2049-2080 and 1 in the 4 free
+# slots, as the fused step gives them, lengths + 1). dbrx-132b (48 / 8 heads of 128, d_model 6144; same-length groups
+# of 32-256 tokens, max_len 512): flash on an exact B 8 x 256 group,
+# decode at Smax 512. RMSNorm at each width on decode rows (8) and a
+# prefill batch, with the residual in front
+FAMILY_CASES = {
+    "rmsnorm": [(8, 1024, False), (8 * 1024, 1024, True), (8, 896, False),
+                (4 * 2048, 896, True), (8, 6144, False),
+                (8 * 256, 6144, True)],
+    "decode_attention": [
+        (8, 16, 16, 64, 1024, 0, [9, 40, 128, 1, 77, 100, 64, 30]),
+        (8, 16, 16, 64, 1024, 0, [1024] * 8),
+        (8, 14, 2, 64, 256, 0, [0, 9, 200, 256, 37, 128, 64, 241]),
+        (8, 14, 2, 64, 2112, 0, [2049, 2060, 2080, 2112, 1, 1, 1, 1]),
+        (8, 48, 8, 128, 512, 0, [33, 64, 200, 287, 0, 512, 129, 260])],
+    "flash_attention": [
+        dict(B=8, S=1024, Hq=16, Hkv=16, D=64, lens=None, causal=False),
+        dict(B=8, S=128, Hq=16, Hkv=16, D=64, lens=None, causal=False,
+             Sk=1024),
+        dict(B=8, S=128, Hq=16, Hkv=16, D=64,
+             lens=[128, 100, 65, 128, 70, 90, 127, 128]),
+        dict(B=8, S=256, Hq=14, Hkv=2, D=64,
+             lens=[256, 200, 129, 256, 131, 140, 250, 180]),
+        dict(B=4, S=2048, Hq=14, Hkv=2, D=64, lens=None),
+        dict(B=8, S=256, Hq=48, Hkv=8, D=128, lens=None)],
 }
 
 
@@ -521,6 +614,12 @@ def kernel_cases(dev):
                                 for c in HYMBA_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, *c)
                                for c in HYMBA_CASES["flash_attention"]]
+    out["rmsnorm"] += [_rmsnorm_case(dev, randn, *c)
+                       for c in FAMILY_CASES["rmsnorm"]]
+    out["decode_attention"] += [_decode_case(dev, randn, *c)
+                                for c in FAMILY_CASES["decode_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, **c)
+                               for c in FAMILY_CASES["flash_attention"]]
     return out
 
 
@@ -702,9 +801,10 @@ def _counts():
 
 
 def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
-          extra=()):
-    """16 requests (prompts of 8..max_prompt tokens, 32 new tokens each,
-    greedy), then one request per length in ``extra``, through
+          extra=(), lengths=None):
+    """16 requests (prompts of 8..max_prompt tokens, or of lengths drawn
+    from ``lengths``; 32 new tokens each, greedy), then one request per
+    length in ``extra``, through
     ``LMServer`` with 8 slots; every count of ``kernels`` is set to 0 just
     before the run and must have risen just after. Then the same requests
     with the fused step eager every step, for its tokens/s."""
@@ -728,8 +828,10 @@ def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
     torch.cuda.synchronize()
 
     srv = make_server()
+    drawn = (rng.integers(8, max_prompt + 1, size=16) if lengths is None
+             else rng.choice(lengths, size=16))
     prompts = [rng.integers(0, vocab, size=int(n))
-               for n in [*rng.integers(8, max_prompt + 1, size=16), *extra]]
+               for n in [*drawn, *extra]]
     rids = [srv.submit(p, max_new_tokens=32) for p in prompts]
     decode_s = []
     inner = srv._decode_once
@@ -793,11 +895,14 @@ def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
                 prefill_shapes=sorted(srv._prefill_shapes))
 
 
-def prefill_rungs(model, params, dev, *, max_len, rungs=None, exact=()):
+def prefill_rungs(model, params, dev, *, max_len, rungs=None, exact=(),
+                  padded=True, extra=None):
     """Host-clock ms of one B=8 ladder-padded prefill per rung (median of 3,
     ending in a synchronise); every rung of the ladder unless ``rungs``;
     then one B=1 exact prompt per length in ``exact`` (keyed
-    ``"exact <n>"``)."""
+    ``"exact <n>"``). ``padded`` False: each rung a B=8 batch of exact
+    prompts of its length (moe's same-length groups); ``extra(B)``: more
+    inputs of the batch (encdec frames)."""
     import numpy as np
     import torch
     from repro_torch.core.batching import prompt_length_ladder
@@ -808,8 +913,8 @@ def prefill_rungs(model, params, dev, *, max_len, rungs=None, exact=()):
         B = 1 if rung in exact else 8
         toks = torch.from_numpy(rng.integers(
             0, model.cfg.vocab_size, size=(B, rung)).astype(np.int32)).to(dev)
-        batch = {"tokens": toks}
-        if rung not in exact:
+        batch = {"tokens": toks, **({} if extra is None else extra(B))}
+        if rung not in exact and padded:
             lens = torch.full((8,), rung, dtype=torch.int32, device=dev)
             lens[1::2] = max(1, rung - rung // 3)
             batch["lengths"] = lens
@@ -930,8 +1035,6 @@ def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
     events gives None."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(3)
     vocab = model.cfg.vocab_size
@@ -941,35 +1044,44 @@ def device_profile(model, params, dev, *, max_len, max_prompt, steps=4,
                  129, 257, size=8).astype(np.int32)).to(dev)}
     srv = _busy_server(model, params, dev, max_len=max_len,
                        max_prompt=max_prompt, slo=slo)
-
-    def traced(fn, n):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn(params)
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not ops:
-            return None
-        busy_us = _union_us([(o.time_range.start, o.time_range.end)
-                             for o in ops])
-        kernels = [o for o in ops if not o.name.startswith("Mem")]
-        return dict(device_ops=len(ops) / n, kernels=len(kernels) / n,
-                    busy_ms=busy_us / 1e3 / n)
-
     split = host_split(srv, params)
     _eager(srv)
-    eager = traced(srv._decode_once, steps)
+    eager = _traced(srv._decode_once, params, steps)
     _graphed(srv)
     for _ in range(2):                 # the eager step, then the capture
         srv._decode_once(params)
     if srv.graph_replays != 1:
         raise AssertionError("the profiled server did not capture its step")
-    return dict(prefill=traced(lambda p: model.prefill(p, batch,
-                                                       max_len=max_len), 1),
-                decode=traced(srv._decode_once, steps),
+    return dict(prefill=_traced(lambda p: model.prefill(p, batch,
+                                                        max_len=max_len),
+                                params, 1),
+                decode=_traced(srv._decode_once, params, steps),
                 decode_eager=eager, host_split=split)
+
+
+def _traced(fn, params, n):
+    """``fn(params)`` ``n`` times under ``torch.profiler``: device
+    operations (kernels, copies) and the device's busy time (the union of
+    their intervals) per call; None where the trace has no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(params)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return None
+    busy_us = _union_us([(o.time_range.start, o.time_range.end)
+                         for o in ops])
+    kernels = [o for o in ops if not o.name.startswith("Mem")]
+    return dict(device_ops=len(ops) / n, kernels=len(kernels) / n,
+                busy_ms=busy_us / 1e3 / n)
 
 
 def eager_vs_graph(model, params, dev, *, max_len, max_prompt, steps=16,
@@ -979,12 +1091,21 @@ def eager_vs_graph(model, params, dev, *, max_len, max_prompt, steps=16,
     replayed from the graph, in turns (eager, graph, graph, eager), each
     turn from the same slot state; the greedy tokens of every turn must be
     equal."""
-    import torch
-
     srv = _busy_server(model, params, dev, max_len=max_len,
                        max_prompt=max_prompt, slo=slo, seed=4)
     for _ in range(2):                 # the eager step, then the capture
         srv._decode_once(params)
+    return _turns(srv, params, steps)
+
+
+def _turns(srv, params, steps=16):
+    """ms per decode step of ``srv`` (its step captured; all of its slots
+    busy), eager and replayed from the graph in turns (eager, graph, graph,
+    eager), each turn from the same slot state; the greedy tokens of every
+    turn must be equal."""
+    import torch
+
+    n_active = len(srv._active)
     state = list(_leaves(srv._slot_state()))
     snap = [t.clone() for t in state]
     ms, toks = {"eager": [], "graph": []}, []
@@ -1000,7 +1121,7 @@ def eager_vs_graph(model, params, dev, *, max_len, max_prompt, steps=16,
         toks.append([r.tokens[-steps:] for _, r in sorted(
             srv._active.items())])
     _graphed(srv)
-    if len(srv._active) != 8 or any(t != toks[0] for t in toks):
+    if len(srv._active) != n_active or any(t != toks[0] for t in toks):
         raise AssertionError("eager and graphed steps disagree")
     return ms
 
@@ -1097,20 +1218,37 @@ def run_quickstart(dev):
 
 
 def cpu_parity(cfg, params, dev, *, state=None, exact=0, tol_key=None,
-               anchor=False):
-    """Prefill + 8 teacher-forced decode steps on the card and on the CPU's
-    plain path, same weights and tokens (two prompts of 64 and 37 tokens,
-    padded to 64; or with ``exact``, one exact prompt of that length); max
-    |logit difference| over the largest |logit|, within
-    ``LOGIT_TOL[tol_key or cfg.name]``. With ``state`` (cache -> named
-    leaves), every leaf after the prefill and after the last step too, each
-    over its own largest magnitude.
+               anchor=False, lens=(64, 37), steps=8, extra=None,
+               routing=False):
+    """Prefill + ``steps`` (8) teacher-forced decode steps on the card and
+    on the CPU's plain path, same weights and tokens (two prompts of 64 and
+    37 tokens, padded to 64, or of ``lens``, padded where they differ; or
+    with ``exact``, one exact prompt of that length); max |logit
+    difference| over the largest |logit|, within ``LOGIT_TOL[tol_key or
+    cfg.name]``. ``extra(rng, B)``: more inputs of the prefill batch, numpy
+    arrays (encdec frames, vlm prefix embeddings, whose rows the cache
+    holds ahead of the text). With ``state`` (cache -> named leaves), every
+    leaf after the prefill and after the last step too, each over its own
+    largest magnitude.
 
     With ``anchor``, a third run in fp32 on the CPU (the same weights
     upcast) anchors both: the card's distance to it, logits and each leaf,
-    may be at most ``ANCHOR_RATIO`` times the CPU bf16 path's."""
+    may be at most ``ANCHOR_RATIO`` times the CPU bf16 path's.
+
+    With ``routing`` (a moe model), the CPU runs first and records each
+    router call's input, expert choices and weights. The card's run keeps
+    its own choices and weights; on a token whose expert set differs from
+    the CPU's, which is allowed only where the CPU's k-th and (k+1)-th
+    router probabilities lie within ``ROUTER_NEAR``, it takes the CPU's, so
+    that a near-tie routed otherwise does not hide the rest of the
+    comparison. Each card call also runs the router on the CPU's own input:
+    the same expert sets (near-ties aside) and weights within
+    ``ROUTER_P_TOL`` of the row's fp32 product scale, which holds the
+    router's fp32 arithmetic on the card apart from the bf16 drift of its
+    input."""
     import numpy as np
     import torch
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models.api import build_model
 
     tol_key = tol_key or cfg.name
@@ -1122,33 +1260,94 @@ def cpu_parity(cfg, params, dev, *, state=None, exact=0, tol_key=None,
         runs.append((build_model(cfg, device="cpu", dtype=torch.float32),
                      _tree_to(cpu_params, torch.float32), "cpu"))
     rng = np.random.default_rng(2)
-    B = 1 if exact else 2
-    toks = rng.integers(0, cfg.vocab_size,
-                        size=(B, exact or 64)).astype(np.int32)
-    lens = np.array([exact] if exact else [64, 37], np.int32)
-    feeds = rng.integers(0, cfg.vocab_size, size=(8, B, 1)).astype(np.int32)
-    results, states = [], []
-    for model, p, d in runs:
-        batch = {"tokens": torch.from_numpy(toks).to(d)}
-        if not exact:
+    B = 1 if exact else len(lens)
+    S = exact or max(lens)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    lens = np.array([exact] if exact else lens, np.int32)
+    feeds = rng.integers(0, cfg.vocab_size,
+                         size=(steps, B, 1)).astype(np.int32)
+    more = {} if extra is None else extra(rng, B)
+    pre = (more["prefix_embeddings"].shape[1]
+           if "prefix_embeddings" in more else 0)
+    results, states = [None] * len(runs), [None] * len(runs)
+    route, cpu_calls, rerouted, p_errs = moe_lib._route, [], [], []
+
+    def recording_route(x2d, router, k):
+        """The CPU's router call, recorded with its input, its k-th gaps and
+        each row's largest sum_i |x_i w_ie|."""
+        out = route(x2d, router, k)
+        srt = torch.softmax(x2d.float() @ router, -1).sort(
+            -1, descending=True).values
+        scale = (x2d.float().abs() @ router.abs()).amax(-1)
+        cpu_calls.append((out, (srt[:, k - 1] - srt[:, k]).clone(),
+                          x2d.clone(), scale))
+        return out
+
+    def differing(e, cpu_e, gap, what):
+        """Rows whose expert set differs from the CPU's; each must sit at a
+        router near-tie."""
+        differs = (e.sort(-1).values.cpu() != cpu_e.sort(-1).values).any(-1)
+        worst = float(gap[differs].max()) if differs.any() else 0.0
+        if worst > ROUTER_NEAR:
+            raise AssertionError(
+                f"card vs CPU routing, {what}: {int(differs.sum())} "
+                f"token(s) routed otherwise where the CPU's k-th and "
+                f"(k+1)-th router probabilities are {worst} apart > "
+                f"{ROUTER_NEAR}")
+        return differs, worst
+
+    def steered_route(x2d, router, k):
+        """The card's router call: its own output, with the CPU's choices
+        and weights on the rows it routes otherwise at a near-tie."""
+        j = len(rerouted)
+        (cpu_p, cpu_e, _), gap, cpu_x, scale = cpu_calls[j]
+        same_p, same_e, _ = route(cpu_x.to(x2d.device), router, k)
+        differs, _ = differing(same_e, cpu_e, gap,
+                               f"router call {j} on the CPU's input")
+        err = (same_p.cpu() - cpu_p).abs().amax(-1) / scale
+        p_errs.append(float(err[~differs].max()) if (~differs).any()
+                      else 0.0)
+        if p_errs[-1] > ROUTER_P_TOL:
+            raise AssertionError(
+                f"card vs CPU router weights on the same input, router call "
+                f"{j}: max |diff| / sum |x w| = {p_errs[-1]} > {ROUTER_P_TOL}")
+        own_p, own_e, aux = route(x2d, router, k)
+        differs, worst = differing(own_e, cpu_e, gap, f"router call {j}")
+        rerouted.append((j, int(differs.sum()), worst))
+        d = differs.to(x2d.device)[:, None]
+        return (torch.where(d, cpu_p.to(x2d.device), own_p),
+                torch.where(d, cpu_e.to(x2d.device), own_e), aux)
+
+    for i in ((1, 0, *range(2, len(runs))) if routing
+              else range(len(runs))):
+        model, p, d = runs[i]
+        if routing and i < 2:
+            moe_lib._route = (steered_route, recording_route)[i]
+        batch = {"tokens": torch.from_numpy(toks).to(d),
+                 **{k: torch.from_numpy(v).to(d) for k, v in more.items()}}
+        if not exact and (lens != S).any():
             batch["lengths"] = torch.from_numpy(lens).to(d)
-        logits, cache = model.prefill(p, batch, max_len=toks.shape[1] + 16)
-        # clone: on the CPU .float().cpu() of an fp32 leaf is the leaf
-        # itself, which the decode steps below update in place
-        snaps = [] if state is None else [
-            {k: t.float().cpu().clone() for k, t in state(cache).items()}]
-        seq = [logits.float().cpu()]
-        ln = torch.from_numpy(lens).to(d)
-        for t in feeds:
-            logits, cache = model.decode_step(p, cache,
-                                              torch.from_numpy(t).to(d), ln)
-            ln = ln + 1
-            seq.append(logits.float().cpu())
+        try:
+            logits, cache = model.prefill(p, batch,
+                                          max_len=pre + S + steps + 8)
+            # clone: on the CPU .float().cpu() of an fp32 leaf is the leaf
+            # itself, which the decode steps below update in place
+            snaps = [] if state is None else [
+                {k: t.float().cpu().clone() for k, t in state(cache).items()}]
+            seq = [logits.float().cpu()]
+            ln = torch.from_numpy(lens + pre).to(d)
+            for t in feeds:
+                logits, cache = model.decode_step(
+                    p, cache, torch.from_numpy(t).to(d), ln)
+                ln = ln + 1
+                seq.append(logits.float().cpu())
+        finally:
+            moe_lib._route = route
         if state is not None:
             snaps.append({k: t.float().cpu().clone()
                           for k, t in state(cache).items()})
-        results.append(torch.stack(seq))
-        states.append(snaps)
+        results[i] = torch.stack(seq)
+        states[i] = snaps
     gpu, cpu = results[:2]
     if not torch.isfinite(gpu).all():
         raise AssertionError("non-finite logits on the card")
@@ -1161,6 +1360,11 @@ def cpu_parity(cfg, params, dev, *, state=None, exact=0, tol_key=None,
     agree = float((gpu.argmax(-1) == cpu.argmax(-1)).float().mean())
     out = dict(prefill_rel_err=rel[0], decode_rel_err=rel[1:],
                logit_scale=scale, argmax_agreement=agree)
+    if routing:
+        out.update(router_calls=len(cpu_calls),
+                   rerouted=[r for r in rerouted if r[1]],
+                   router_p_err=max(p_errs),
+                   min_router_gap=min(float(c[1].min()) for c in cpu_calls))
     for when, g, c in zip(("prefill", "decode"), *states[:2]):
         for name in c:
             if not torch.isfinite(g[name]).all():
@@ -1981,6 +2185,9 @@ def phases(dev):
     log(f"{xcfg.name} phases: {time.perf_counter() - t0:.1f} s")
 
     hcfg, hrun = hymba_phases(dev)
+    ecfg, eruns = encdec_phases(dev)
+    vcfg, vrun, vpre = vlm_phases(dev)
+    mcfg, mrun = moe_phases(dev)
 
     kernels = []
     for kname, rows in cases.items():
@@ -1998,7 +2205,12 @@ def phases(dev):
                        crows[-1]["launches"][kname],
                    "pipeline lmcascade": casc["reduced"]["launches"][kname],
                    "pipeline lmcascade, full width":
-                       casc["full"]["launches"][kname]}
+                       casc["full"]["launches"][kname],
+                   f"{ecfg.name} S_enc 1024": eruns[1024]["launches"][kname],
+                   f"{ecfg.name} S_enc 512": eruns[512]["launches"][kname],
+                   f"{vcfg.name} text": vrun["launches"][kname],
+                   f"{vcfg.name} prefixed": vpre["launches"][kname],
+                   f"{mcfg.name} 4 layers": mrun["launches"][kname]}
         kernels.append(dict(
             name=kname, route=route, source=source, replaces=REPLACES[kname],
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -2070,6 +2282,297 @@ def hymba_phases(dev):
     log(f"{cfg.name} long path (2 layers, one exact 3072-token prompt and 8 "
         f"decode steps) card vs CPU plain path: {long}")
     log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
+    return cfg, run
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the encdec, vlm and moe families at full width
+# ---------------------------------------------------------------------------
+
+def _park(model, params, dev, batch, *, max_len):
+    """``model.prefill`` of ``batch`` (B <= 8 rows) moved into slots 0..B-1
+    of an 8-slot ``LMServer`` by admission's own placement (``_place``:
+    the first token sampled greedily, ``batched_scatter``, the slot
+    state); the requests never finish on their own. The path the JAX
+    package serves the encoder-decoder and the vision prefix by: prefill,
+    scatter, the fused decode step."""
+    import numpy as np
+    from repro_torch.serving.engine import LMServer, Request
+
+    srv = LMServer(model, device=dev, slots=8, max_len=max_len,
+                   temperature=0.0, seed=0)
+    logits, pcache = model.prefill(params, batch, max_len=max_len)
+    B = logits.shape[0]
+    srv._place([Request(i, np.zeros(0, np.int32), 1 << 30, 0.0)
+                for i in range(B)], logits, pcache, list(range(B)),
+               pcache["lengths"].cpu().numpy(), None)
+    return srv
+
+
+def slot_decode(model, params, dev, batch, *, max_len, kernels, steps=32):
+    """The main path of a family the JAX package serves without
+    ``LMServer``: prefill of ``batch`` -> ``batched_scatter`` into 8 slots
+    -> the fused decode step, eager once, then captured in a CUDA graph
+    and replayed, ``steps`` steps. Every count of ``kernels`` is set to 0
+    just before the prefill and must have risen just after the last step.
+    The same with the step eager every time: the streams must be equal.
+    Returns the counts, ms per step (host clock, each step ending in its
+    host copy), the streams' tokens and the graphed server (step
+    captured)."""
+    import torch
+
+    def run(graph):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = _park(model, params, dev, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if not graph:
+            _eager(srv)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            srv._decode_once(params)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        return srv, prefill_s, step_s
+
+    run(True)                          # warm-up: cuBLAS, Triton, allocator
+    _zero_counts()
+    srv, prefill_s, step_s = run(True)
+    launches = _counts()
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no kernel launch on the main path")
+    if srv.graph_replays != steps - 1:
+        raise AssertionError(f"{srv.graph_replays} graph replays in {steps} "
+                             f"decode steps")
+    eager, _, eager_s = run(False)
+    streams = [r.tokens for _, r in sorted(srv._active.items())]
+    if streams != [r.tokens for _, r in sorted(eager._active.items())]:
+        raise AssertionError("graphed and eager streams differ")
+    width = model.cfg.padded(1).vocab_size
+    if any(len(t) != steps + 1 or not all(0 <= x < width for x in t)
+           for t in streams):
+        raise AssertionError("a stream is short or leaves the head's ids")
+    return dict(launches=launches, prefill_ms=1e3 * prefill_s,
+                graph_ms_per_step=1e3 * step_s / steps,
+                eager_ms_per_step=1e3 * eager_s / steps,
+                graph_replays=srv.graph_replays, srv=srv,
+                slots=len(streams))
+
+
+def report_slots(label, run, prof, timing):
+    """Log a ``slot_decode`` run with its profile and timing turns."""
+    log(f"{label} prefill -> scatter -> fused decode: {run['slots']} slots, "
+        f"prefill {run['prefill_ms']:.3f} ms (with the scatter), "
+        f"{run['graph_replays']} replays at {run['graph_ms_per_step']:.3f} "
+        f"ms/step (eager every step {run['eager_ms_per_step']:.3f} ms/step);"
+        f" graphed and eager streams equal; launches {run['launches']}")
+    e, g = timing["eager"], timing["graph"]
+    eager_ms, graph_ms_ = sum(e) / len(e), sum(g) / len(g)
+    log(f"{label} decode ms per step, same steps in turns (eager, graph, "
+        f"graph, eager): eager {e}, graph {g}; mean eager {eager_ms} ms, "
+        f"graph {graph_ms_} ms, eager / graph {eager_ms / graph_ms_}")
+    for what, wall in (("prefill", run["prefill_ms"]),
+                       ("decode_eager", eager_ms), ("decode", graph_ms_)):
+        p = prof[what]
+        if p is None:
+            log(f"{label} profiler {what}: no device events in the trace "
+                f"(not measured)")
+            continue
+        log(f"{label} profiler {what}: {p['device_ops']} device ops "
+            f"({p['kernels']} kernels), device busy {p['busy_ms']} ms of "
+            f"{wall} ms unprofiled, idle share {1 - p['busy_ms'] / wall}")
+
+
+def slot_profile(model, params, dev, batch, srv, *, max_len, steps=4):
+    """The prefill of ``batch`` and ``steps`` decode steps of ``srv`` (its
+    step captured), eager and graphed, under ``torch.profiler``."""
+    _eager(srv)
+    eager = _traced(srv._decode_once, params, steps)
+    _graphed(srv)
+    return dict(prefill=_traced(lambda p: model.prefill(p, batch,
+                                                        max_len=max_len),
+                                params, 1),
+                decode_eager=eager,
+                decode=_traced(srv._decode_once, params, steps))
+
+
+def encdec_phases(dev):
+    """The encoder-decoder path: full-width seamless-m4t-medium (12 + 12
+    layers, 16 / 16 heads of 64). ``model.prefill`` over seeded fp32
+    frames [8, 1024, 1024] and decoder prompts of 8-128 tokens on the
+    ladder -> 8 slots of max_len 1024 -> the fused decode step, graphed;
+    again with frames of 512 rows (the memory padded into the 1024-row
+    slot cache: its zero rows are attended, as in the reference); prefill
+    ms per decoder rung; the profile; eager against graphed ms per step;
+    card against the CPU on 64 frames."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.core.batching import bucket, prompt_length_ladder
+    from repro_torch.models.api import build_model
+
+    t0 = time.perf_counter()
+    cfg = ARCHITECTURES["seamless-m4t-medium"]
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    d, max_len = cfg.d_model, 1024
+    log(f"model: {cfg.name} full width, {cfg.num_layers} + "
+        f"{cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params bf16")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(0)
+
+    def frames(B, S):
+        return torch.randn((B, S, d), generator=gen, device=dev)
+
+    lens = rng.integers(8, 129, size=8)
+    rung = bucket(int(lens.max()), ladder=prompt_length_ladder(max_len))
+    toks = np.zeros((8, rung), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    text = {"tokens": torch.from_numpy(toks).to(dev),
+            "lengths": torch.from_numpy(lens.astype(np.int32)).to(dev)}
+    kernels = ("rmsnorm", "decode_attention", "flash_attention")
+    out = {}
+    for S_enc in (1024, 512):
+        batch = dict(text, frames=frames(8, S_enc))
+        run = slot_decode(model, params, dev, batch, max_len=max_len,
+                          kernels=kernels)
+        srv = run.pop("srv")
+        if tuple(srv.cache["ck"].shape)[2] != max_len:
+            raise AssertionError("the memory is not in a max_len slot cache")
+        if S_enc < max_len and srv.cache["ck"][:, :, S_enc:].any():
+            raise AssertionError("the padded memory rows are not zero")
+        prof = slot_profile(model, params, dev, batch, srv, max_len=max_len)
+        timing = _turns(srv, params)
+        report_slots(f"{cfg.name} S_enc={S_enc} decoder rung {rung}", run,
+                     prof, timing)
+        out[S_enc] = run
+        del srv
+    rungs = prefill_rungs(model, params, dev, max_len=max_len,
+                          rungs=(8, 32, 128),
+                          extra=lambda B: {"frames": frames(B, 1024)})
+    log(f"{cfg.name} prefill ms per decoder rung (B=8, frames of 1024): "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in rungs.items()))
+    parity = cpu_parity(cfg, params, dev, extra=lambda r, B: {
+        "frames": r.normal(size=(B, 64, d)).astype(np.float32)})
+    log(f"{cfg.name} card vs CPU plain path (64 frames, prompts of 64 and "
+        f"37, 8 decode steps): {parity}")
+    log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
+    return cfg, out
+
+
+def vlm_phases(dev):
+    """The vision-prefixed path: full-width internvl2-1b (24 layers, 14 / 2
+    heads of 64). (a) Text through ``LMServer``, as the reference serves
+    the family (phases 3-6 at max_len 256); (b) prefixed: 1024 seeded
+    prefix rows + 1024 text tokens, B = 4 (S = 2048) -> slots of max_len
+    2112 -> the fused decode step, graphed; card against the CPU with 64
+    prefix rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models.api import build_model
+
+    t0 = time.perf_counter()
+    cfg = ARCHITECTURES["internvl2-1b"]
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    d, P = cfg.d_model, cfg.num_prefix_embeddings
+    log(f"model: {cfg.name} full width, {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M params bf16")
+    kernels = ("rmsnorm", "decode_attention", "flash_attention")
+    run = serve(model, params, dev, kernels=kernels, max_len=256,
+                max_prompt=200)
+    rungs = prefill_rungs(model, params, dev, max_len=256)
+    prof = device_profile(model, params, dev, max_len=256, max_prompt=200)
+    timing = eager_vs_graph(model, params, dev, max_len=256, max_prompt=200)
+    tokens = token_parity(model, params, dev, max_len=256, max_prompt=100)
+    parity = cpu_parity(cfg, params, dev)
+    report_path(f"{cfg.name} text", run, rungs, prof, parity,
+                per_prefill=("flash_attention",),
+                per_step=("decode_attention",), timing=timing, tokens=tokens)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, size=(4, 1024)).astype(np.int32)).to(dev),
+             "prefix_embeddings": torch.randn((4, P, d), generator=gen,
+                                              device=dev)}
+    pre = slot_decode(model, params, dev, batch, max_len=2112,
+                      kernels=kernels)
+    srv = pre.pop("srv")
+    if srv.lengths.tolist()[:4] != [P + 1024 + 32] * 4:
+        raise AssertionError(f"prefixed slot lengths {srv.lengths.tolist()}")
+    pprof = slot_profile(model, params, dev, batch, srv, max_len=2112)
+    ptiming = _turns(srv, params)
+    report_slots(f"{cfg.name} prefixed ({P} prefix rows + 1024 tokens, B=4)",
+                 pre, pprof, ptiming)
+    del srv
+    pparity = cpu_parity(cfg, params, dev, lens=(64, 64),
+                         tol_key=f"{cfg.name} prefixed",
+                         extra=lambda r, B: {"prefix_embeddings": r.normal(
+                             size=(B, 64, d)).astype(np.float32)})
+    log(f"{cfg.name} prefixed card vs CPU plain path (64 prefix rows + 64 "
+        f"tokens, B=2, 8 decode steps): {pparity}")
+    log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
+    return cfg, run, pre
+
+
+def moe_phases(dev):
+    """The mixture-of-experts path: dbrx-132b at full width (d_model 6144,
+    48 / 8 heads of 128, 16 experts top-4, d_ff 10752), depth cut from 40
+    to 4 layers (the 40 do not fit in 80 GB). 16 requests of 32-256 tokens
+    through ``LMServer`` in same-length groups (no ladder: padding would
+    compete for capacity), phases 3-6 at max_len 512; card against the CPU
+    cut to 1 layer (2 prompts of 16 tokens, 4 decode steps, the routing
+    held to the router near-tie rule, ``cpu_parity(routing=True)``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models.api import build_model
+
+    t0 = time.perf_counter()
+    full = ARCHITECTURES["dbrx-132b"]
+    cfg = dataclasses.replace(full, num_layers=4)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of "
+        f"{full.num_layers} layers, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params "
+        f"(bf16, fp32 router); init {time.perf_counter() - t0:.1f} s")
+    kernels = ("rmsnorm", "decode_attention", "flash_attention")
+    if model.extras["prompt_pad"]:
+        raise AssertionError("moe prompts must not take the ladder")
+    run = serve(model, params, dev, kernels=kernels, max_len=512,
+                max_prompt=256, lengths=(32, 64, 128, 256), slo=5.0)
+    if any(padded for _, _, padded in run["prefill_shapes"]):
+        raise AssertionError(f"a moe prefill was padded: "
+                             f"{run['prefill_shapes']}")
+    rungs = prefill_rungs(model, params, dev, max_len=512,
+                          rungs=(32, 64, 128, 256), padded=False)
+    prof = device_profile(model, params, dev, max_len=512, max_prompt=256,
+                          slo=5.0)
+    timing = eager_vs_graph(model, params, dev, max_len=512, max_prompt=256,
+                            slo=5.0)
+    tokens = token_parity(model, params, dev, max_len=512, max_prompt=64,
+                          reference=True)
+    del params
+    torch.cuda.empty_cache()
+    one = dataclasses.replace(full, num_layers=1)
+    oparams = build_model(one, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    parity = cpu_parity(one, oparams, dev, lens=(16, 16), steps=4,
+                        tol_key=f"{cfg.name} 1 layer", routing=True)
+    del oparams
+    report_path(f"{cfg.name} 4 layers", run, rungs, prof, parity,
+                per_prefill=("flash_attention",),
+                per_step=("decode_attention",), timing=timing, tokens=tokens)
+    log(f"{cfg.name} phases: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     return cfg, run
 
 

@@ -45,16 +45,17 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16, **opts) -> Model:
-    """Dispatch on family. Ported: the dense decoder-only family, the ssm
-    family (xlstm) and the hybrid family (hymba)."""
-    from repro_torch.models import hymba, transformer, xlstm
+    """Dispatch on family: the decoder-only transformer (dense, moe, vlm),
+    xlstm (ssm), hymba (hybrid) and the encoder-decoder (encdec)."""
+    from repro_torch.models import encdec, hymba, transformer, xlstm
 
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return transformer.build(cfg, device=dev, dtype=dtype, **opts)
     if cfg.family == "ssm":
         return xlstm.build(cfg, device=dev, dtype=dtype, **opts)
     if cfg.family == "hybrid":
         return hymba.build(cfg, device=dev, dtype=dtype, **opts)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet")
+    if cfg.family == "encdec":
+        return encdec.build(cfg, device=dev, dtype=dtype, **opts)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,190 @@
+"""Encoder-decoder transformer (seamless-m4t backbone), serving path.
+
+Port of the serving parts of ``repro.models.encdec``. The audio frontend
+is a stub, as in the reference: ``batch["frames"]`` carries precomputed
+frame embeddings [B, S_enc, d] (fp32 or bf16; cast to the working dtype).
+The encoder runs non-causal flash prefill over them; the decoder runs
+causal self-attention over its text tokens, then non-causal
+cross-attention over the encoder memory, then the GLU FFN.
+
+Parameters keep the reference's tree: ``{"embed", "enc_norm", "enc",
+"dec"}``, the encoder and decoder layers each stacked on ``[L]``.
+
+The cache is ``{"k", "v": [L, B, Smax, Hkv, D], "ck", "cv": [L, B, S_enc,
+Hkv, D], "lengths": [B]}``: the decoder's self K/V and each layer's K/V of
+the memory, computed once in prefill. ``decode_step`` writes the new self
+K/V rows into the cache it is given, in place, and attends the memory with
+``S_enc = ck.shape[2]`` valid rows, as the reference does: a memory that
+admission padded into a longer slot cache (``init_cache(slots, max_len)``
+without ``enc_len``) is attended with its zero rows too.
+
+Not ported here: ``loss_fn`` (training)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import Model
+from repro_torch.models.common import (
+    Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv,
+    attn_specs, cache_update, embed_specs, embed_tokens, glu_apply, glu_specs,
+    init_tree, last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked,
+    unstack,
+)
+
+
+def build(cfg: ModelConfig, *, device: torch.device,
+          dtype: torch.dtype) -> Model:
+    pd = cfg.padded(1)
+    nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
+    d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
+
+    enc_layer = {
+        "ln1": Spec((d,), "ones"),
+        "attn": attn_specs(d, nq, nkv, hd, cfg.qkv_bias),
+        "ln2": Spec((d,), "ones"),
+        "ffn": glu_specs(d, cfg.d_ff),
+    }
+    dec_layer = {
+        "ln1": Spec((d,), "ones"),
+        "self": attn_specs(d, nq, nkv, hd, cfg.qkv_bias),
+        "ln_x": Spec((d,), "ones"),
+        "cross": attn_specs(d, nq, nkv, hd, cfg.qkv_bias),
+        "ln2": Spec((d,), "ones"),
+        "ffn": glu_specs(d, cfg.d_ff),
+    }
+    specs = {
+        "embed": embed_specs(V, d),
+        "enc_norm": Spec((d,), "ones"),
+        "enc": stacked(enc_layer, L),
+        "dec": stacked(dec_layer, L),
+    }
+
+    def init(gen: torch.Generator):
+        """Seeded parameters on the model's device (``gen`` lives there)."""
+        return init_tree(gen, specs, device, dtype)
+
+    def _positions(S: int):
+        return rope_tables(torch.arange(S, device=device)[None, :], hd,
+                           cfg.rope_theta)
+
+    def _encode(params, frames):
+        x = frames.to(dtype)
+        B, S, _ = x.shape
+        tables = _positions(S)
+        for lp in unstack(params["enc"], L):
+            h = rmsnorm(x, lp["ln1"], eps)
+            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k = rope(q, tables), rope(k, tables)
+            o = attention_prefill(q, k, v, causal=False)
+            x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd)
+                                @ lp["attn"]["wo"], lp["ln2"], eps)
+            x = x + glu_apply(lp["ffn"], h2)
+        return rmsnorm(x, params["enc_norm"], eps)
+
+    def _cross_q(p, h):
+        B, S, _ = h.shape
+        q = h @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        return q.view(B, S, nq, hd)
+
+    def _cross_kv(p, memory):
+        B, S, _ = memory.shape
+        k, v = memory @ p["wk"], memory @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        return k.view(B, S, nkv, hd), v.view(B, S, nkv, hd)
+
+    # ---------------- prefill ----------------
+    def prefill(params, batch, max_len: Optional[int] = None):
+        """batch: ``frames`` [B, S_enc, d], ``tokens`` [B, S] and optional
+        per-sample ``lengths`` [B] (right-padded decoder prompts). Returns
+        last-token logits [B, V] and the cache, self K/V padded to
+        ``max_len`` positions."""
+        memory = _encode(params, batch["frames"])
+        x = embed_tokens(params["embed"], batch["tokens"])
+        B, S, _ = x.shape
+        S_enc = memory.shape[1]
+        Smax = max_len or S
+        vl = batch.get("lengths")
+        ks = torch.zeros((L, B, Smax, nkv, hd), dtype=x.dtype, device=device)
+        vs = torch.zeros_like(ks)
+        cks = torch.empty((L, B, S_enc, nkv, hd), dtype=x.dtype,
+                          device=device)
+        cvs = torch.empty_like(cks)
+        tables = _positions(S)
+        for i, lp in enumerate(unstack(params["dec"], L)):
+            h = rmsnorm(x, lp["ln1"], eps)
+            q, k, v = attn_qkv(lp["self"], h, nq, nkv, hd)
+            q, k = rope(q, tables), rope(k, tables)
+            o = attention_prefill(q, k, v, causal=True, kv_valid=vl)
+            x, h = add_rmsnorm(x, o.reshape(B, S, nq * hd)
+                               @ lp["self"]["wo"], lp["ln_x"], eps)
+            ck, cv = _cross_kv(lp["cross"], memory)
+            ox = attention_prefill(_cross_q(lp["cross"], h), ck, cv,
+                                   causal=False)
+            x, h2 = add_rmsnorm(x, ox.reshape(B, S, nq * hd)
+                                @ lp["cross"]["wo"], lp["ln2"], eps)
+            x = x + glu_apply(lp["ffn"], h2)
+            ks[i, :, :S], vs[i, :, :S] = k, v
+            cks[i], cvs[i] = ck, cv
+        x_last = (x[:, -1:].contiguous() if vl is None
+                  else last_valid_slice(x, vl))
+        logits = lm_head(params["embed"], x_last, eps)[:, 0]
+        lengths = (torch.full((B,), S, dtype=torch.int32, device=device)
+                   if vl is None else vl.to(torch.int32))
+        return logits, {"k": ks, "v": vs, "ck": cks, "cv": cvs,
+                        "lengths": lengths}
+
+    # ---------------- decode ----------------
+    def decode_step(params, cache, tokens, lengths):
+        """tokens: [B,1]; lengths: [B] int32 current decoder length per
+        sample. Writes the new self K/V rows into ``cache`` in place."""
+        x = embed_tokens(params["embed"], tokens)
+        B = x.shape[0]
+        tables = rope_tables(lengths[:, None], hd, cfg.rope_theta)
+        valid = lengths + 1
+        # every memory row counts, padding included (the reference's
+        # ``enc_len = ck.shape[1]``)
+        enc_len = torch.full((B,), cache["ck"].shape[2], dtype=torch.int32,
+                             device=device)
+        k_layers = torch.unbind(cache["k"], 0)
+        v_layers = torch.unbind(cache["v"], 0)
+        ck_layers = torch.unbind(cache["ck"], 0)
+        cv_layers = torch.unbind(cache["cv"], 0)
+        for i, lp in enumerate(unstack(params["dec"], L)):
+            h = rmsnorm(x, lp["ln1"], eps)
+            q, k, v = attn_qkv(lp["self"], h, nq, nkv, hd)
+            q, k = rope(q, tables), rope(k, tables)
+            cache_update(k_layers[i], v_layers[i], k, v, lengths)
+            o = attention_decode(q, k_layers[i], v_layers[i], valid)
+            x, h = add_rmsnorm(x, o.reshape(B, 1, nq * hd)
+                               @ lp["self"]["wo"], lp["ln_x"], eps)
+            ox = attention_decode(_cross_q(lp["cross"], h), ck_layers[i],
+                                  cv_layers[i], enc_len)
+            x, h2 = add_rmsnorm(x, ox.reshape(B, 1, nq * hd)
+                                @ lp["cross"]["wo"], lp["ln2"], eps)
+            x = x + glu_apply(lp["ffn"], h2)
+        logits = lm_head(params["embed"], x, eps)[:, 0]
+        return logits, {"k": cache["k"], "v": cache["v"], "ck": cache["ck"],
+                        "cv": cache["cv"], "lengths": valid}
+
+    def init_cache(batch: int, max_len: int, enc_len: int = 0):
+        kv = (L, batch, max_len, nkv, hd)
+        ckv = (L, batch, enc_len or max_len, nkv, hd)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                "ck": torch.zeros(ckv, dtype=dtype, device=device),
+                "cv": torch.zeros(ckv, dtype=dtype, device=device),
+                "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)}
+
+    return Model(
+        cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
+        decode_step=decode_step, init_cache=init_cache,
+        extras={"prompt_pad": True},
+    )

@@ -1,10 +1,18 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer: the dense, moe and vlm families.
 
-Port of the dense path of ``repro.models.transformer``. Parameters keep the
-reference's tree: ``{"embed": {...}, "layers": {...}}`` with every layer
+Port of the serving paths of ``repro.models.transformer``. Parameters keep
+the reference's tree: ``{"embed": {...}, "layers": {...}}`` with every layer
 leaf stacked on a leading ``[L]`` axis. The reference scans over that axis;
 here a Python loop walks the layers (``torch.unbind`` gives the per-layer
 views without copies). Per-layer sliding windows are static ints.
+
+A moe layer holds ``"moe"`` (fp32 router, experts stacked ``[E, ...]``;
+``repro_torch.models.moe``) where a dense one holds ``"ffn"``. The vlm
+frontend is a stub, as in the reference: ``batch["prefix_embeddings"]``
+[B, P, d] (precomputed patch embeddings) is cast to the working dtype and
+put ahead of the text embeddings in ``prefill``; ``lengths`` then still
+count text tokens while ``kv_valid`` indexes the prefixed sequence, as in
+the reference.
 
 The KV cache is ``{"k", "v": [L, B, Smax, Hkv, D], "lengths": [B]}``.
 ``decode_step`` writes the new K/V rows into the cache it is given, in
@@ -17,6 +25,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv, attn_specs,
@@ -27,12 +36,17 @@ from repro_torch.models.common import (
 
 def _layer_specs(cfg: ModelConfig, nq: int, nkv: int,
                  hd: int) -> Dict[str, Any]:
-    return {
+    specs: Dict[str, Any] = {
         "ln1": Spec((cfg.d_model,), "ones"),
         "attn": attn_specs(cfg.d_model, nq, nkv, hd, cfg.qkv_bias),
         "ln2": Spec((cfg.d_model,), "ones"),
-        "ffn": glu_specs(cfg.d_model, cfg.d_ff),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_lib.moe_specs(cfg.d_model, cfg.d_ff,
+                                         cfg.num_experts)
+    else:
+        specs["ffn"] = glu_specs(cfg.d_model, cfg.d_ff)
+    return specs
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -54,6 +68,10 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         "layers": stacked(_layer_specs(cfg, nq, nkv, hd), L),
     }
     windows = _layer_windows(cfg)
+    moe_dims = None
+    if cfg.family == "moe":
+        moe_dims = moe_lib.MoEDims(cfg.num_experts, cfg.num_experts_per_tok,
+                                   cfg.moe_capacity_factor, d, cfg.d_ff)
 
     def init(gen: torch.Generator):
         """Seeded parameters on the model's device (``gen`` lives there)."""
@@ -62,15 +80,25 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     def _attn_out_ffn(x, o, lp):
         """Residual add of the attention output, second norm, FFN."""
         x, h2 = add_rmsnorm(x, o @ lp["attn"]["wo"], lp["ln2"], eps)
+        if moe_dims is not None:
+            return x + moe_lib.moe_apply(lp["moe"], h2, moe_dims)[0]
         return x + glu_apply(lp["ffn"], h2)
+
+    def _embed_input(params, batch):
+        x = embed_tokens(params["embed"], batch["tokens"])
+        if cfg.frontend == "vision" and "prefix_embeddings" in batch:
+            pre = batch["prefix_embeddings"].to(x.dtype)
+            x = torch.cat([pre, x], dim=1)
+        return x
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
-        (right-padded prompts). Returns last-token logits [B,V] and a cache
+        (right-padded prompts); vlm: optional ``prefix_embeddings`` [B,P,d]
+        ahead of the tokens. Returns last-token logits [B,V] and a cache
         padded to ``max_len`` positions; rows past a prompt's length hold
         the padding's K/V, as in the reference."""
-        x = embed_tokens(params["embed"], batch["tokens"])
+        x = _embed_input(params, batch)
         B, S, _ = x.shape
         Smax = max_len or S
         vl = batch.get("lengths")
@@ -126,5 +154,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
         decode_step=decode_step, init_cache=init_cache,
-        extras={"prompt_pad": True},
+        # moe excluded from prompt padding, as in the reference: junk
+        # tokens contend for expert capacity
+        extras={"prompt_pad": cfg.family != "moe"},
     )

@@ -133,17 +133,25 @@ def batched_scatter(cache: Any, pcache: Any, dst: torch.Tensor,
     slot cache, in place, one indexed copy per leaf. Walks the cache tree
     (dicts and tuples) as the reference's ``jax.tree.map`` does. Leaves are
     [B] (lengths) or layer-stacked [L, B, ...] (prefill pads K/V to the slot
-    cache's ``max_len``)."""
+    cache's ``max_len``); a leaf shorter along dim 2 (an encoder memory of
+    ``S_enc`` rows in a ``max_len`` slot cache) fills the slots' first
+    ``S_enc`` rows and zeroes the rest, as the reference pads it."""
     if isinstance(cache, dict):
         for name, leaf in cache.items():
             batched_scatter(leaf, pcache[name], dst, src)
     elif isinstance(cache, (tuple, list)):
         for leaf, pleaf in zip(cache, pcache, strict=True):
             batched_scatter(leaf, pleaf, dst, src)
+    elif cache.dim() == 1:
+        cache.index_copy_(0, dst, pcache.index_select(0, src).to(cache.dtype))
     else:
-        axis = 0 if cache.dim() == 1 else 1
-        cache.index_copy_(axis, dst,
-                          pcache.index_select(axis, src).to(cache.dtype))
+        rows = pcache.index_select(1, src).to(cache.dtype)
+        n = _pad_rows(cache, rows)
+        if n is None:
+            cache.index_copy_(1, dst, rows)
+        else:
+            cache[:, :, :n].index_copy_(1, dst, rows)
+            cache[:, :, n:].index_fill_(1, dst, 0)
 
 
 def _admit_state(lengths, cur, active, gen, max_new, dst, src, vlens, firsts,
@@ -169,7 +177,21 @@ def _scatter_cache(cache: Any, pcache: Any, src: int, dst: int) -> None:
     elif cache.dim() == 1:                  # lengths [B]
         cache[dst] = pcache[src]
     else:                                   # layer-stacked [L, B, ...]
-        cache[:, dst] = pcache[:, src].to(cache.dtype)
+        row = pcache[:, src].to(cache.dtype)
+        n = _pad_rows(cache, row[:, None])
+        if n is None:
+            cache[:, dst] = row
+        else:
+            cache[:, dst, :n] = row
+            cache[:, dst, n:] = 0
+
+
+def _pad_rows(cache: torch.Tensor, rows: torch.Tensor) -> Optional[int]:
+    """``rows``' length along dim 2 where it is shorter than ``cache``'s
+    (an encoder memory prefilled shorter than the slot cache), else None."""
+    if rows.dim() > 2 and rows.shape[2] < cache.shape[2]:
+        return rows.shape[2]
+    return None
 
 
 class LMServer:
@@ -405,6 +427,13 @@ class LMServer:
                         r.trace, "prefill", "lm.prefill", t0, t0 + dt,
                         budget_s=self.slo * self.prefill_slo_frac,
                         attrs={"batch": n, "padded_len": int(plen)})
+        self._place(batch, logits, pcache, free, vlens, dt)
+
+    def _place(self, batch, logits, pcache, free, vlens, dt) -> None:
+        """Admission's second half: sample each request's first token from
+        its prefill ``logits`` and move request ``i`` (row ``i`` of
+        ``pcache``, ``vlens[i]`` valid positions) into slot ``free[i]``."""
+        n = len(batch)
         first = sample(logits, self.generator, temperature=self.temperature)
         first_np = first.cpu().numpy()
         if not self.fused:
@@ -419,7 +448,7 @@ class LMServer:
                 self.lengths[s] = int(vlens[i])
                 self.cur_tokens[s, 0] = int(first_np[i])
             return
-        maxnews = np.zeros((nb,), np.int32)
+        maxnews = np.zeros((len(vlens),), np.int32)
         for i, r in enumerate(batch):
             s = free[i]
             r.slot = s

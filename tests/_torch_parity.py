@@ -35,6 +35,20 @@ XLSTM_CONFIGS = ("x8", "x256")
 # several chunks of the scan
 HYMBA_CONFIGS = ("h2", "h5")
 H5 = dict(num_layers=5, global_layers=(0, 2, 4))
+# the encdec, vlm and moe families, each reduced as the JAX tests reduce it
+# (G = 2) and narrow with its real grouping: seamless-m4t-medium ("ed2";
+# "ed1", 4 / 4 heads, MHA like the full model's 16 / 16), internvl2-1b
+# ("vl2"; "vl7", 7 / 1 heads of 16 like the full model's 14 / 2) and
+# dbrx-132b ("mo2"; "mo6", 6 / 1 heads of 32 like the full model's 48 / 8;
+# 4 experts, top-2, as reduced)
+FAMILY_CONFIGS = {
+    "ed2": ("seamless-m4t-medium", {}),
+    "ed1": ("seamless-m4t-medium", dict(num_heads=4, num_kv_heads=4)),
+    "vl2": ("internvl2-1b", {}),
+    "vl7": ("internvl2-1b", dict(num_heads=7, num_kv_heads=1, head_dim=16)),
+    "mo2": ("dbrx-132b", {}),
+    "mo6": ("dbrx-132b", dict(num_heads=6, num_kv_heads=1, head_dim=32)),
+}
 
 
 def configs(name: str):
@@ -42,6 +56,12 @@ def configs(name: str):
     if name in XLSTM_CONFIGS:
         return (reduced_config(ARCHITECTURES["xlstm-125m"]),
                 t_reduced_config(T_ARCHITECTURES["xlstm-125m"]))
+    if name in FAMILY_CONFIGS:
+        arch, narrow = FAMILY_CONFIGS[name]
+        return tuple(dataclasses.replace(red(arch_cfgs[arch]), **narrow)
+                     for red, arch_cfgs in ((reduced_config, ARCHITECTURES),
+                                            (t_reduced_config,
+                                             T_ARCHITECTURES)))
     if name in HYMBA_CONFIGS:
         jc = reduced_config(ARCHITECTURES["hymba-1.5b"])
         tc = t_reduced_config(T_ARCHITECTURES["hymba-1.5b"])
@@ -60,9 +80,10 @@ def mesh_rules():
     return compat_make_mesh((1, 1), ("data", "model")), serve_rules(False)
 
 
-def build_pair(name: str, seed: int = 0):
-    """JAX model + params and the port's model + bridged params (CPU)."""
-    jc, tc = configs(name)
+def build_pair(name: str, seed: int = 0, **fields):
+    """JAX model + params and the port's model + bridged params (CPU);
+    ``fields`` replace config fields in both."""
+    jc, tc = (dataclasses.replace(c, **fields) for c in configs(name))
     opts = {"chunk": int(name[1:])} if name in XLSTM_CONFIGS else {}
     if name == "h5":
         opts = {"chunk": 8}
@@ -83,3 +104,31 @@ def f32(x) -> np.ndarray:
 
 def t_bf16(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def family_batch(cfg, rng, toks, lengths=None, *, frames=8, scale=0.5):
+    """The same prefill batch for both packages: ``toks`` [B, S] int32,
+    optional ``lengths`` [B]; encdec adds seeded fp32 ``frames`` [B,
+    frames, d] and vlm ``prefix_embeddings`` [B, num_prefix_embeddings, d]
+    (``frames`` == 0: none), each N(0, scale**2). Returns (JAX batch,
+    torch batch)."""
+    arrays = {"tokens": np.asarray(toks, np.int32)}
+    if lengths is not None:
+        arrays["lengths"] = np.asarray(lengths, np.int32)
+    B = arrays["tokens"].shape[0]
+    if cfg.family == "encdec":
+        arrays["frames"] = (rng.normal(size=(B, frames, cfg.d_model))
+                            * scale).astype(np.float32)
+    if cfg.family == "vlm" and frames:
+        arrays["prefix_embeddings"] = (rng.normal(size=(
+            B, cfg.num_prefix_embeddings, cfg.d_model)) * scale).astype(
+            np.float32)
+    jb = {k: jax.numpy.asarray(v) for k, v in arrays.items()}
+    tb = {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+    return jb, tb
+
+
+def bridged(tree):
+    """A reference cache (or any tree of arrays) as torch tensors on the
+    CPU, bit for bit."""
+    return params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")

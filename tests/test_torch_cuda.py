@@ -64,7 +64,8 @@ def _close(got, want, rtol, atol):
 
 
 @pytest.mark.parametrize("n,d", [(1, 960), (37, 960), (8, 64), (5, 3000),
-                                 (8, 1600)])
+                                 (8, 1600), (8, 896), (8, 1024), (8, 6144),
+                                 (2048, 896), (1024, 1024), (512, 6144)])
 @pytest.mark.parametrize("residual", [False, True])
 def test_rmsnorm_kernel(dev, n, d, residual):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -107,6 +108,14 @@ DECODE_CASES = [
     (8, 25, 5, 64, 2048, [1, 300, 2048, 2048, 1500, 2048, 37, 2048], 0),
     (4, 4, 2, 16, 16, [1, 6, 16, 16], 0),
     (8, 25, 5, 64, 3200, [1, 2049, 3100, 3073, 500, 2048, 3200, 1000], 0),
+    # the encdec, vlm and moe families at full width: seamless-m4t-medium
+    # (G = 1, self and cross over a 1024-row memory), internvl2-1b (G = 7,
+    # its text slots and its prefixed cache) and dbrx-132b (G = 6, D = 128)
+    (8, 16, 16, 64, 1024, [9, 40, 128, 1, 77, 100, 64, 30], 0),
+    (8, 16, 16, 64, 1024, [1024] * 8, 0),
+    (8, 14, 2, 64, 256, [0, 9, 200, 256, 37, 128, 64, 241], 0),
+    (4, 14, 2, 64, 2112, [2049, 2060, 2080, 2112], 0),
+    (8, 48, 8, 128, 512, [33, 64, 200, 287, 0, 512, 129, 260], 0),
 ]
 
 
@@ -173,6 +182,40 @@ def test_flash_attention_kernel(dev, case):
                                                device=dev)
     kw = dict(causal=True, window=window, q_block=qb, k_block=kb,
               q_offset=q_off, kv_valid=kv)
+    before = flash_attention_op.launches
+    got = flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_op.launches == before + 1
+    _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
+
+
+NONCAUSAL_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, D, kv_valid, q_block, k_block): encoders (Sq ==
+    # Sk) and cross-attention over a memory (Sq != Sk); seamless-m4t-medium
+    # at full width: its encoder (B 8, S 1024, 16 / 16 heads of 64) and its
+    # decoder's cross-attention (Sq 128 against Sk 1024)
+    (2, 16, 16, 4, 4, 16, None, 512, 1024),
+    (3, 32, 32, 4, 2, 64, None, 8, 16),
+    (2, 8, 32, 4, 4, 64, None, 8, 1024),
+    (3, 16, 8, 4, 2, 32, None, 16, 1024),
+    (2, 24, 48, 6, 2, 128, [48, 30], 8, 16),
+    (2, 100, 60, 15, 5, 64, None, 100, 60),                  # ragged tiles
+    (8, 1024, 1024, 16, 16, 64, None, 512, 1024),
+    (8, 128, 1024, 16, 16, 64, None, 128, 1024),
+    (8, 128, 512, 16, 16, 64, None, 128, 1024),
+]
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_flash_attention_kernel_noncausal(dev, case):
+    B, Sq, Sk, Hq, Hkv, D, kvv, qb, kb = case
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = _randn((B, Sq, Hq, D), gen, dev)
+    k = _randn((B, Sk, Hkv, D), gen, dev)
+    v = _randn((B, Sk, Hkv, D), gen, dev)
+    kv = None if kvv is None else torch.tensor(kvv, dtype=torch.int32,
+                                               device=dev)
+    kw = dict(causal=False, q_block=qb, k_block=kb, kv_valid=kv)
     before = flash_attention_op.launches
     got = flash_attention_op(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -471,7 +514,8 @@ def test_hymba_lmserver_on_card(dev):
 def _small_model(kind, dev):
     """A reduced dense model (G = 2, D = 32: shapes every kernel takes),
     reduced xlstm (chunk 8) or reduced hymba (window 16: prompts past it
-    take the exact path, and decoding past it wraps the rings), with
+    take the exact path, and decoding past it wraps the rings), or reduced
+    internvl2-1b, dbrx-132b (4 experts, top-2) or seamless-m4t-medium, with
     seeded weights on the card."""
     import dataclasses
 
@@ -486,6 +530,10 @@ def _small_model(kind, dev):
     elif kind == "hymba":
         model = build_model(reduced_config(ARCHITECTURES["hymba-1.5b"]),
                             device=dev)
+    elif kind in ("vlm", "moe", "encdec"):
+        arch = {"vlm": "internvl2-1b", "moe": "dbrx-132b",
+                "encdec": "seamless-m4t-medium"}[kind]
+        model = build_model(reduced_config(ARCHITECTURES[arch]), device=dev)
     else:
         model = build_model(reduced_config(ARCHITECTURES["xlstm-125m"]),
                             device=dev, chunk=8)
@@ -534,7 +582,7 @@ def _serve(srv, params, prompts_seed=0, n=6, max_new=8):
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
-@pytest.mark.parametrize("kind", ["dense", "xlstm", "hymba"])
+@pytest.mark.parametrize("kind", ["dense", "xlstm", "hymba", "vlm", "moe"])
 def test_graphed_decode_matches_eager(dev, kind, temperature):
     """The same requests through a server whose fused step replays as a
     CUDA graph and through one that runs it eagerly: the same kernels on
@@ -555,6 +603,64 @@ def test_graphed_decode_matches_eager(dev, kind, temperature):
     assert g_toks == e_toks
     assert g_launch == e_launch
     assert g_srv.stats["host_syncs_per_decode_step"] == 1.0
+
+
+def _park(model, params, batch, max_len):
+    """``batch``'s prefill moved into slots 0.. of a 4-slot server by
+    admission's own placement; the requests never finish on their own."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+
+    srv = _server(model, graph=True)
+    assert srv.max_len == max_len
+    logits, pcache = model.prefill(params, batch, max_len=max_len)
+    B = logits.shape[0]
+    srv._place([Request(i, np.zeros(0, np.int32), 1 << 30, 0.0)
+                for i in range(B)], logits, pcache, list(range(B)),
+               pcache["lengths"].cpu().numpy(), None)
+    return srv
+
+
+@pytest.mark.parametrize("S_enc", [8, 64])
+def test_encdec_graphed_decode_matches_eager_and_cpu(dev, S_enc):
+    """Reduced seamless-m4t-medium through prefill (frames of S_enc rows,
+    decoder prompts of 5 and 9 tokens on rung 16) -> ``batched_scatter``
+    into a 64-row slot cache (8 frames: the memory padded with zero rows)
+    -> the fused step, 12 steps graphed and eager: equal streams; the
+    graphed streams equal the CPU's plain path's (greedy: the card may
+    differ from the CPU only at a bf16 near-tie, which these inputs do not
+    reach)."""
+    import numpy as np
+
+    model = _small_model("encdec", dev)
+    params = _params(model, 0)
+    rng = np.random.default_rng(3)
+    toks = np.zeros((2, 16), np.int32)
+    toks[0, :5] = rng.integers(0, 256, 5)
+    toks[1, :9] = rng.integers(0, 256, 9)
+    frames = rng.normal(size=(2, S_enc, model.cfg.d_model)).astype(np.float32)
+
+    def batch(d):
+        return {"tokens": torch.from_numpy(toks).to(d),
+                "lengths": torch.tensor([5, 9], dtype=torch.int32, device=d),
+                "frames": torch.from_numpy(frames).to(d)}
+
+    streams = []
+    from repro_torch.models.api import build_model
+    cpu_model = build_model(model.cfg, device="cpu")
+    for m, p, graph in ((model, params, True), (model, params, False),
+                        (cpu_model, _tree_to(params, "cpu"), False)):
+        srv = _park(m, p, batch(m.device), 64)
+        if not graph and m.device.type == "cuda":
+            srv._decode_device = lambda params, srv=srv: srv._decode_fused(
+                params, *srv._slot_state())
+        for _ in range(12):
+            srv._decode_once(p)
+        if graph:
+            assert srv.graph_replays == 11
+        streams.append([r.tokens for _, r in sorted(srv._active.items())])
+    assert streams[0] == streams[1] == streams[2]
 
 
 def test_graph_launch_counts_equal_eager(dev):

@@ -31,8 +31,8 @@ sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 # modules the guard must find (and import without loading JAX): the
 # frontend stack, the obs layer, the scenario CLI, the hybrid family, the
-# pipelines, the control plane, faults, the exporter and the validator
-# among them
+# pipelines, the control plane, faults, the exporter and the validator,
+# the encoder-decoder and moe families and the serving launcher among them
 MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.core.context", "repro_torch.core.straggler",
         "repro_torch.core.cache", "repro_torch.core.containers",
@@ -41,7 +41,8 @@ MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.models.hymba", "repro_torch.pipeline.cascade",
         "repro_torch.pipeline.scenario", "repro_torch.cluster.plan",
         "repro_torch.faults.plan", "repro_torch.obs.export",
-        "repro_torch.metrics.validate")
+        "repro_torch.metrics.validate", "repro_torch.models.encdec",
+        "repro_torch.models.moe", "repro_torch.launch.serve")
 
 
 def _env():

@@ -158,6 +158,42 @@ def test_flash_attention_plain_matches_attention_prefill(case):
     _close_to_jnp(out, ref)
 
 
+NONCAUSAL_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, D, kv_valid, q_block, k_block): the encoder
+    # (Sq == Sk, one and several key blocks) and the decoder's
+    # cross-attention over the memory (Sq != Sk), G = 1 and G = 2
+    (2, 16, 16, 4, 4, 16, None, 512, 1024),
+    (3, 32, 32, 4, 2, 16, None, 8, 16),
+    (2, 8, 32, 4, 4, 16, None, 8, 1024),
+    (3, 16, 8, 4, 2, 16, None, 16, 1024),
+    (2, 24, 48, 6, 2, 32, [48, 30], 8, 16),              # kv_valid
+]
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_flash_attention_plain_noncausal_matches_jax(case):
+    """``causal=False`` against ``attention_prefill`` (one bf16 rounding)
+    and, without kv_valid, the Pallas kernel in interpret mode (3 bf16
+    ulps of 1 absolute, as above)."""
+    B, Sq, Sk, Hq, Hkv, D, kvv, qb, kb = case
+    rng = np.random.default_rng(5)
+    jq, tq = _bf16(rng, (B, Sq, Hq, D))
+    jk, tk = _bf16(rng, (B, Sk, Hkv, D))
+    jv, tv = _bf16(rng, (B, Sk, Hkv, D))
+    jkv = None if kvv is None else jnp.asarray(kvv, jnp.int32)
+    tkv = None if kvv is None else torch.tensor(kvv, dtype=torch.int32)
+    out = flash_attention_op(tq, tk, tv, causal=False, q_block=qb,
+                             k_block=kb, kv_valid=tkv)
+    ref = JC.attention_prefill(jq, jk, jv, causal=False, q_block=qb,
+                               k_block=kb, kv_valid=jkv)
+    _close_to_jnp(out, ref)
+    if kvv is None:
+        pal = j_flash_op(jq, jk, jv, causal=False, q_blk=8, k_blk=8,
+                         interpret=True)
+        np.testing.assert_allclose(f32(out), f32(pal), atol=3 * BF16_ULP,
+                                   rtol=BF16_ULP)
+
+
 @pytest.mark.parametrize("Hq,Hkv,window", [(4, 2, 0), (6, 2, 0), (4, 4, 8)])
 def test_flash_attention_plain_matches_pallas(Hq, Hkv, window):
     """Without kv_valid, against the Pallas kernel in interpret mode: it

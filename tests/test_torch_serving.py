@@ -315,3 +315,52 @@ def test_temperature_sampling_distribution():
     assert set(np.unique(top2.numpy())) <= {0, 1}
     assert torch.equal(sample(logits[:3], temperature=0.0),
                        torch.tensor([1, 1, 1], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_placing_a_prefill_writes_what_admission_writes(fused):
+    """``LMServer._place`` is admission's second half, and the way a
+    prefill made outside the server (the encoder-decoder's frames, the
+    vision prefix) is parked in its slots. For the same prefill, placing it
+    leaves every cache leaf, lengths, current tokens, active mask,
+    generated counts, max_new and the slots' requests as ``submit`` and
+    admission leave them, bit for bit."""
+    from repro_torch.serving.engine import Request
+
+    cfg = t_reduced_config(T_ARCHITECTURES["smollm-360m"])
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9)]
+    servers = [LMServer(model, device="cpu", slots=4, max_len=MAX_LEN,
+                        temperature=0.0, fused=fused) for _ in range(2)]
+    admitted, placed = servers
+    prefills = []
+
+    def recording_prefill(params, toks, vlens, padded,
+                          _prefill=admitted._prefill):
+        prefills.append((vlens.copy(), *_prefill(params, toks, vlens,
+                                                 padded)))
+        return prefills[-1][1:]
+
+    admitted._prefill = recording_prefill
+    for p in prompts:
+        admitted.submit(p, max_new_tokens=7)
+    while admitted._queue:
+        admitted._admit(params)
+    i = 0
+    for vlens, logits, pcache in prefills:
+        n = min(len(logits), len(prompts) - i)
+        placed._place([Request(i + j, prompts[i + j], 7, 0.0)
+                       for j in range(n)], logits, pcache,
+                      list(range(i, i + n)), vlens, None)
+        i += n
+    assert i == len(prompts)
+    for name in admitted.cache:
+        assert torch.equal(admitted.cache[name], placed.cache[name]), name
+    for a, b in zip(admitted._slot_state()[1:], placed._slot_state()[1:]):
+        assert torch.equal(a, b)
+    assert ([(s, r.tokens, r.max_new_tokens)
+             for s, r in sorted(admitted._active.items())]
+            == [(s, r.tokens, r.max_new_tokens)
+                for s, r in sorted(placed._active.items())])
