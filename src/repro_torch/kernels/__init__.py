@@ -8,7 +8,12 @@ Every wrapper counts its kernel's launches in ``<wrapper>.launches``, added
 to where it launches and nowhere else. A wrapper called while a CUDA graph
 is captured launches nothing then: whoever captures takes the counts of the
 capture back and credits them on every replay (:func:`launch_counts`,
-:func:`credit_launches`), so a count keeps meaning kernel launches."""
+:func:`credit_launches`), so a count keeps meaning kernel launches.
+
+No kernel has a backward: a wrapper that would launch its kernel on an
+input that needs a gradient raises (:func:`refuse_autograd`) rather than
+return an output cut from the graph. The training forward takes the plain
+versions."""
 
 from __future__ import annotations
 
@@ -38,6 +43,19 @@ def credit_launches(counts: Dict[Callable, int]) -> None:
     """Add ``counts`` to the wrappers' launch counts (negative: take back)."""
     for w, n in counts.items():
         w.launches += n
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd is on and one of ``tensors`` requires a gradient:
+    the kernel writes into a fresh buffer, so its output would have no
+    ``grad_fn`` and ``backward()`` would leave the inputs' gradients
+    silently missing."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires a "
+            f"gradient; run it under torch.no_grad() or take the plain "
+            f"version (the models' train=True forward)")
 
 
 @functools.lru_cache(maxsize=None)

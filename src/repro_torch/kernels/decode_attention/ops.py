@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted, softmax_scale
+from repro_torch.kernels import counted, refuse_autograd, softmax_scale
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
@@ -41,6 +41,7 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                                     window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_op: unsupported device {q.device}")
+    refuse_autograd("decode_attention_op", q, k_cache, v_cache)
     if Hq // Hkv > 8 or D % 2 or D > 128:
         raise ValueError(f"decode_attention_op: the kernel takes G <= 8 and "
                          f"even D <= 128; got G={Hq // Hkv} D={D}")

@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted, softmax_scale
+from repro_torch.kernels import counted, refuse_autograd, softmax_scale
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -51,6 +51,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
+    refuse_autograd("flash_attention_op", q, k, v)
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention_op: the kernel takes D in "
                          f"{_HEAD_DIMS}; got D={D}")

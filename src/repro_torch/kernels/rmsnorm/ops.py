@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, refuse_autograd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -37,6 +37,7 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
         return rmsnorm_ref(x, w, eps=eps, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_op: unsupported device {x.device}")
+    refuse_autograd("rmsnorm_op", x, w, residual)
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm_op: dtypes {x.dtype}, {w.dtype}")
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm

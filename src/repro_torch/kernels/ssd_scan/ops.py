@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import counted
+from repro_torch.kernels import counted, refuse_autograd
 from repro_torch.kernels.ssd_scan.ref import check_chunk, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, MAX_DK, ssd_scan
 
@@ -52,6 +52,7 @@ def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             initial_state=initial_state)
     if q.device.type != "cuda":
         raise ValueError(f"ssd_scan_op: unsupported device {q.device}")
+    refuse_autograd("ssd_scan_op", *tensors)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError("ssd_scan_op: the kernel takes bf16 q, k, v")
     if any(t.dtype != torch.float32 for t in tensors[3:]):

@@ -27,6 +27,8 @@ class Model:
     decode_step: Callable[..., Any]   # (params, cache, tokens, lengths)
     #                                   -> (logits, cache)
     init_cache: Callable[..., Any]    # (batch, max_len) -> cache
+    loss_fn: Callable[..., Any]       # (params, batch) -> fp32 scalar
+    #                                   (differentiable; runs no kernel)
     extras: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -44,18 +46,19 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",
-                dtype: torch.dtype = torch.bfloat16, **opts) -> Model:
+                dtype: torch.dtype = torch.bfloat16, remat: str = "full",
+                **opts) -> Model:
     """Dispatch on family: the decoder-only transformer (dense, moe, vlm),
-    xlstm (ssm), hymba (hybrid) and the encoder-decoder (encdec)."""
+    xlstm (ssm), hymba (hybrid) and the encoder-decoder (encdec).
+
+    ``remat`` is ``loss_fn``'s activation checkpointing around each layer
+    (``"full"``, ``"dots"`` or ``"none"``; ``common.with_remat``)."""
     from repro_torch.models import encdec, hymba, transformer, xlstm
 
     dev = resolve_device(device)
-    if cfg.family in ("dense", "moe", "vlm"):
-        return transformer.build(cfg, device=dev, dtype=dtype, **opts)
-    if cfg.family == "ssm":
-        return xlstm.build(cfg, device=dev, dtype=dtype, **opts)
-    if cfg.family == "hybrid":
-        return hymba.build(cfg, device=dev, dtype=dtype, **opts)
-    if cfg.family == "encdec":
-        return encdec.build(cfg, device=dev, dtype=dtype, **opts)
+    modules = {"dense": transformer, "moe": transformer, "vlm": transformer,
+               "ssm": xlstm, "hybrid": hymba, "encdec": encdec}
+    if cfg.family in modules:
+        return modules[cfg.family].build(cfg, device=dev, dtype=dtype,
+                                         remat=remat, **opts)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,25 +1,36 @@
 """Shared model substrate: parameter specs and seeded init, norms, RoPE,
 attention, projections, embedding and head.
 
-Port of the serving parts of ``repro.models.common``. Tensors keep the
-JAX package's layouts (activations ``[B, S, H, D]``, weights ``[in, out]``,
-layers stacked on a leading ``[L]`` axis) and round to the working dtype at
-the same points, so the same weights give the same tokens. The three kernel
+Port of ``repro.models.common``. Tensors keep the JAX package's layouts
+(activations ``[B, S, H, D]``, weights ``[in, out]``, layers stacked on a
+leading ``[L]`` axis) and round to the working dtype at the same points, so
+the same weights give the same tokens. The serving paths' three kernel
 functions route to ``repro_torch.kernels``: on CPU tensors the plain
 versions run, on CUDA tensors the Hopper kernels.
+
+The training forward (``train=True``, as the reference's own ``train``
+flags pick ``attention_train``) runs no kernel on either device: the
+reference's ``loss_fn`` reaches no Pallas kernel, and a kernel's output
+would have no ``grad_fn``. It takes the plain RMSNorm, the plain chunked
+scan and :func:`attention_train`; :func:`with_remat` wraps a layer in
+activation checkpointing.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.kernels import softmax_scale
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 
 # ---------------------------------------------------------------------------
@@ -109,18 +120,20 @@ def embed_specs(vocab: int, d_model: int) -> Dict[str, Spec]:
 # norms & rope
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    return rmsnorm_op(x, weight, eps=eps)
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
+            train: bool = False) -> torch.Tensor:
+    """The kernel's wrapper; the plain version where ``train``."""
+    return (rmsnorm_ref if train else rmsnorm_op)(x, weight, eps=eps)
 
 
 def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
-                eps: float = 1e-5):
+                eps: float = 1e-5, *, train: bool = False):
     """``(x + y, rmsnorm(x + y))``, the norm reading the sum before it is
     rounded to the working dtype. The reference writes ``x = x + y`` and
     ``rmsnorm(x)``; compiled, its residual add and the norm's upcast fuse so
     the norm sees the unrounded sum, and this reproduces that."""
-    return rmsnorm_op(x, weight, eps=eps, residual=y)
+    return (rmsnorm_ref if train else rmsnorm_op)(x, weight, eps=eps,
+                                                  residual=y)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -148,6 +161,31 @@ def rope(x: torch.Tensor, tables) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+
+def attention_train(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Full masked GQA attention in plain differentiable ops, the
+    reference's ``attention_train``: q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D]. q is
+    scaled in its dtype (the scale rounded to it first), the scores are
+    summed in fp32 from the exact products, masked with -1e30 (``window``
+    0 = full), softmaxed in fp32, and the probabilities rounded to v's dtype
+    before the second product."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D) * softmax_scale(scale, D, q.dtype)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    w = window if window > 0 else 1 << 30
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = k_pos > q_pos - w
+    if causal:
+        mask &= k_pos <= q_pos
+    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, Hq, D)
+
 
 def attention_prefill(q, k, v, *, causal: bool = True, window: int = 0,
                       q_block: int = 512, k_block: int = 1024,
@@ -204,6 +242,62 @@ def embed_tokens(p: Dict[str, torch.Tensor],
 def lm_head(p: Dict[str, torch.Tensor], x: torch.Tensor,
             norm_eps: float) -> torch.Tensor:
     return rmsnorm(x, p["final_norm"], norm_eps) @ p["head"]
+
+
+def chunked_loss(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 labels: torch.Tensor, norm_eps: float,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the vocab, chunked over the sequence: the
+    final RMSNorm (plain), then per chunk of ``min(chunk, S)`` positions
+    the fp32 logsumexp minus the gold logit, summed in fp32 and divided by
+    ``B * S``. The forward makes one chunk's ``[B, chunk, V]`` logits at a
+    time; autograd keeps each chunk's for the backward, as the reference's
+    scan keeps its residuals. x: [B,S,d]; labels: [B,S]."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_loss: S={S} is not a multiple of the "
+                         f"chunk {chunk}")
+    x = rmsnorm_ref(x, p["final_norm"], eps=norm_eps)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, chunk):
+        logits = (x[:, lo:lo + chunk] @ p["head"]).float()
+        gold = logits.gather(-1, labels[:, lo:lo + chunk, None].long())
+        total = total + torch.sum(torch.logsumexp(logits, -1) - gold[..., 0])
+    return total / (B * S)
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing (the reference's ``jax.checkpoint`` policies)
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("full", "dots", "none")
+# the products a ``"dots"`` checkpoint keeps (``checkpoint_dots``): every
+# matrix product the layers run, einsums included, lowers to one of these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def with_remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` under activation checkpointing: ``"full"`` keeps only its
+    inputs and recomputes the rest in the backward pass, ``"dots"`` keeps
+    the matrix products' outputs too, ``"none"`` is ``fn`` itself. It
+    changes what the backward pass keeps, never a value."""
+    if mode == "none":
+        return fn
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}: {mode!r}")
+    kw = {} if mode == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def last_valid_slice(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

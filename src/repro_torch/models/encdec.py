@@ -1,6 +1,6 @@
-"""Encoder-decoder transformer (seamless-m4t backbone), serving path.
+"""Encoder-decoder transformer (seamless-m4t backbone).
 
-Port of the serving parts of ``repro.models.encdec``. The audio frontend
+Port of ``repro.models.encdec``. The audio frontend
 is a stub, as in the reference: ``batch["frames"]`` carries precomputed
 frame embeddings [B, S_enc, d] (fp32 or bf16; cast to the working dtype).
 The encoder runs non-causal flash prefill over them; the decoder runs
@@ -18,7 +18,10 @@ K/V rows into the cache it is given, in place, and attends the memory with
 admission padded into a longer slot cache (``init_cache(slots, max_len)``
 without ``enc_len``) is attended with its zero rows too.
 
-Not ported here: ``loss_fn`` (training)."""
+``loss_fn`` is the training forward: the encoder (non-causal
+:func:`attention_train`), then the decoder (causal self-attention,
+non-causal cross-attention over the memory), each layer under ``remat``,
+with the plain RMSNorm, then ``chunked_loss``."""
 
 from __future__ import annotations
 
@@ -29,15 +32,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv,
-    attn_specs, cache_update, embed_specs, embed_tokens, glu_apply, glu_specs,
-    init_tree, last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked,
-    unstack,
+    Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
+    attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
+    embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
+    rmsnorm, rope, rope_tables, stacked, unstack, with_remat,
 )
 
 
-def build(cfg: ModelConfig, *, device: torch.device,
-          dtype: torch.dtype) -> Model:
+def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
+          remat: str = "full") -> Model:
     pd = cfg.padded(1)
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
@@ -71,19 +74,26 @@ def build(cfg: ModelConfig, *, device: torch.device,
         return rope_tables(torch.arange(S, device=device)[None, :], hd,
                            cfg.rope_theta)
 
-    def _encode(params, frames):
-        x = frames.to(dtype)
+    def enc_block(x, lp, tables, train: bool):
         B, S, _ = x.shape
-        tables = _positions(S)
+        h = rmsnorm(x, lp["ln1"], eps, train=train)
+        q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+        q, k = rope(q, tables), rope(k, tables)
+        o = (attention_train(q, k, v, causal=False) if train
+             else attention_prefill(q, k, v, causal=False))
+        x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
+                            lp["ln2"], eps, train=train)
+        return x + glu_apply(lp["ffn"], h2)
+
+    enc_block_remat = with_remat(enc_block, remat)
+
+    def _encode(params, frames, train: bool = False):
+        x = frames.to(dtype)
+        tables = _positions(x.shape[1])
+        block = enc_block_remat if train else enc_block
         for lp in unstack(params["enc"], L):
-            h = rmsnorm(x, lp["ln1"], eps)
-            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
-            q, k = rope(q, tables), rope(k, tables)
-            o = attention_prefill(q, k, v, causal=False)
-            x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd)
-                                @ lp["attn"]["wo"], lp["ln2"], eps)
-            x = x + glu_apply(lp["ffn"], h2)
-        return rmsnorm(x, params["enc_norm"], eps)
+            x = block(x, lp, tables, train)
+        return rmsnorm(x, params["enc_norm"], eps, train=train)
 
     def _cross_q(p, h):
         B, S, _ = h.shape
@@ -98,6 +108,34 @@ def build(cfg: ModelConfig, *, device: torch.device,
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
         return k.view(B, S, nkv, hd), v.view(B, S, nkv, hd)
+
+    # ---------------- train ----------------
+    def dec_block_train(x, lp, memory, tables):
+        """One decoder layer of the training forward."""
+        B, S, _ = x.shape
+        h = rmsnorm(x, lp["ln1"], eps, train=True)
+        q, k, v = attn_qkv(lp["self"], h, nq, nkv, hd)
+        q, k = rope(q, tables), rope(k, tables)
+        o = attention_train(q, k, v, causal=True)
+        x, h = add_rmsnorm(x, o.reshape(B, S, nq * hd) @ lp["self"]["wo"],
+                           lp["ln_x"], eps, train=True)
+        ck, cv = _cross_kv(lp["cross"], memory)
+        ox = attention_train(_cross_q(lp["cross"], h), ck, cv, causal=False)
+        x, h2 = add_rmsnorm(x, ox.reshape(B, S, nq * hd)
+                            @ lp["cross"]["wo"], lp["ln2"], eps, train=True)
+        return x + glu_apply(lp["ffn"], h2)
+
+    dec_block = with_remat(dec_block_train, remat)
+
+    def loss_fn(params, batch):
+        """batch: ``frames`` [B,S_enc,d], ``tokens``, ``labels`` [B,S] ->
+        mean cross-entropy over the decoder positions, fp32."""
+        memory = _encode(params, batch["frames"], train=True)
+        x = embed_tokens(params["embed"], batch["tokens"])
+        tables = _positions(x.shape[1])
+        for lp in unstack(params["dec"], L):
+            x = dec_block(x, lp, memory, tables)
+        return chunked_loss(params["embed"], x, batch["labels"], eps)
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
@@ -185,6 +223,6 @@ def build(cfg: ModelConfig, *, device: torch.device,
 
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
-        decode_step=decode_step, init_cache=init_cache,
+        decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
         extras={"prompt_pad": True},
     )

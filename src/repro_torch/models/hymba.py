@@ -1,6 +1,6 @@
 """Hymba, hybrid family: blocks with *parallel* attention and SSD heads.
 
-Port of the serving parts of ``repro.models.hymba``. Each block feeds the
+Port of ``repro.models.hymba``. Each block feeds the
 same normed input to (a) GQA attention, sliding-window except on the
 global layers, and (b) an SSD branch (mamba2-style: in-projection, a short
 causal conv, the scalar-decay matrix-state recurrence of the chunked linear
@@ -14,6 +14,11 @@ the sliding-window layers on ``[n_swa]``; ``w_dt``, ``b_dt``, ``a_log`` and
 ``i``, then the ``_segments(cfg)[i]`` sliding-window layers that follow it
 (the reference unrolls the global layers and scans each segment; here a
 Python loop walks both).
+
+``loss_fn`` runs every layer in that order from zero conv and SSD states
+with :func:`attention_train` (the window on the sliding-window layers),
+the plain RMSNorm and the plain chunked scan, each layer under ``remat``,
+then ``chunked_loss``.
 
 The cache has the reference's leaves, each stacked by layer ``[L, B, ...]``:
 ``kg``/``vg`` [n_global, B, Smax, Hkv, D] (full-length), ``kw``/``vw``
@@ -34,9 +39,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_decode_ring,
-    attention_prefill, attn_qkv, attn_specs, cache_update, embed_specs,
-    embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
-    ring_cache_update, rmsnorm, rope, rope_tables, silu, stacked, unstack,
+    attention_prefill, attention_train, attn_qkv, attn_specs, cache_update,
+    chunked_loss, embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
+    last_valid_slice, lm_head, ring_cache_update, rmsnorm, rope, rope_tables,
+    silu, stacked, unstack, with_remat,
 )
 from repro_torch.models.linear_core import (
     chunked_linear_attention, linear_attention_step, pad_mask_gates,
@@ -108,9 +114,10 @@ def _ssd_out(p, y, v, z):
     return (y.reshape(z.shape) * silu(z)) @ p["w_out"]
 
 
-def _ssd_seq(p, x, state, chunk: int, vl=None):
+def _ssd_seq(p, x, state, chunk: int, vl=None, train: bool = False):
     """SSD branch over a sequence ``x`` [B,S,d]. state: (conv_state, S
-    [B,H,ds,D] fp32). Returns (branch output, (conv_state, S))."""
+    [B,H,ds,D] fp32), either None for zeros. Returns (branch output,
+    (conv_state, S)); ``train``: the plain scan."""
     B, S, _ = x.shape
     nh, ds, hd = _ssd_dims(p)
     conv_state, Sm = state
@@ -124,7 +131,7 @@ def _ssd_seq(p, x, state, chunk: int, vl=None):
         log_f, log_i = pad_mask_gates(log_f, log_i, vl)
     v = xin.view(B, S, nh, hd)
     y, Sm = chunked_linear_attention(c, b, v, log_f, log_i, chunk=chunk,
-                                     initial_state=Sm)
+                                     initial_state=Sm, train=train)
     return _ssd_out(p, y, v, z), (conv_state, Sm)
 
 
@@ -156,7 +163,7 @@ def _segments(cfg: ModelConfig) -> List[int]:
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          chunk: int = 256) -> Model:
+          remat: str = "full", chunk: int = 256) -> Model:
     pd = cfg.padded(1)
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
@@ -197,13 +204,37 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                 yield "w", i, swa[i]
             lo += segs[gi]
 
-    def _mix_ffn(lp, x, a_out, s_out):
+    def _mix_ffn(lp, x, a_out, s_out, train: bool = False):
         """Per-branch norms averaged into the residual, second norm, FFN;
         returns the residual and the FFN's output, not yet added."""
-        mix = 0.5 * (rmsnorm(a_out, lp["ln_attn"], eps)
-                     + rmsnorm(s_out, lp["ln_ssd"], eps))
-        x, h2 = add_rmsnorm(x, mix, lp["ln2"], eps)
+        mix = 0.5 * (rmsnorm(a_out, lp["ln_attn"], eps, train=train)
+                     + rmsnorm(s_out, lp["ln_ssd"], eps, train=train))
+        x, h2 = add_rmsnorm(x, mix, lp["ln2"], eps, train=train)
         return x, glu_apply(lp["ffn"], h2)
+
+    # ---------------- train ----------------
+    def layer_train(x, lp, tables, window: int):
+        """One block of the training forward from zero conv / SSD states."""
+        B, S, _ = x.shape
+        h = rmsnorm(x, lp["ln"], eps, train=True)
+        q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+        q, k = rope(q, tables), rope(k, tables)
+        o = attention_train(q, k, v, causal=True, window=window)
+        s_out, _ = _ssd_seq(lp["ssd"], h, (None, None), chunk, train=True)
+        x, y = _mix_ffn(lp, x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
+                        s_out, train=True)
+        return x + y
+
+    layer = with_remat(layer_train, remat)
+
+    def loss_fn(params, batch):
+        """batch: ``tokens``, ``labels`` [B,S] -> mean cross-entropy, fp32."""
+        x = embed_tokens(params["embed"], batch["tokens"])
+        tables = rope_tables(torch.arange(x.shape[1], device=device)[None],
+                             hd, cfg.rope_theta)
+        for kind, _, lp in _layers(params):
+            x = layer(x, lp, tables, W if kind == "w" else 0)
+        return chunked_loss(params["embed"], x, batch["labels"], eps)
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
@@ -313,7 +344,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
-        decode_step=decode_step, init_cache=init_cache,
+        decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
         # prompt padding is exact (masked SSD gates, per-sample conv state)
         # only while the padded bucket stays within the window
         extras={"padded": pd, "segments": segs,

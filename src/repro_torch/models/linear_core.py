@@ -7,7 +7,8 @@ per-step scalar gates,
     y_t = q_t . S_t
 
 runs over a whole prompt in chunkwise-parallel form
-(:func:`chunked_linear_attention`, routed to the ``ssd_scan`` kernel) and
+(:func:`chunked_linear_attention`, routed to the ``ssd_scan`` kernel, or
+to its plain version in the training forward) and
 one token at a time in decode (:func:`linear_attention_step`, which updates
 the state it is given in place)."""
 
@@ -18,17 +19,20 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
 def chunked_linear_attention(q, k, v, log_f, log_i, *, chunk: int = 256,
-                             initial_state: Optional[torch.Tensor] = None
+                             initial_state: Optional[torch.Tensor] = None,
+                             train: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k: [B,S,H,dk]; v: [B,S,H,dv]; log_f, log_i: [B,S,H] (log_f <= 0);
-    initial_state: [B,H,dk,dv] fp32 or None.
+    initial_state: [B,H,dk,dv] fp32 or None. ``train``: the plain
+    (differentiable) scan in place of the kernel's wrapper.
 
     Returns (y [B,S,H,dv], final_state [B,H,dk,dv] fp32)."""
-    return ssd_scan_op(q, k, v, log_f, log_i, chunk=chunk,
-                       initial_state=initial_state)
+    return (ssd_scan_ref if train else ssd_scan_op)(
+        q, k, v, log_f, log_i, chunk=chunk, initial_state=initial_state)
 
 
 def pad_mask_gates(log_f, log_i, vl):

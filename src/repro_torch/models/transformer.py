@@ -1,6 +1,6 @@
 """Decoder-only transformer: the dense, moe and vlm families.
 
-Port of the serving paths of ``repro.models.transformer``. Parameters keep
+Port of ``repro.models.transformer``. Parameters keep
 the reference's tree: ``{"embed": {...}, "layers": {...}}`` with every layer
 leaf stacked on a leading ``[L]`` axis. The reference scans over that axis;
 here a Python loop walks the layers (``torch.unbind`` gives the per-layer
@@ -13,6 +13,11 @@ frontend is a stub, as in the reference: ``batch["prefix_embeddings"]``
 put ahead of the text embeddings in ``prefill``; ``lengths`` then still
 count text tokens while ``kv_valid`` indexes the prefixed sequence, as in
 the reference.
+
+``loss_fn`` is the training forward: every layer (under ``remat``) with
+:func:`attention_train` and the plain RMSNorm, then ``chunked_loss`` over
+the text positions (a vlm prefix is excluded), plus ``0.01 *`` the moe
+layers' summed load-balancing term.
 
 The KV cache is ``{"k", "v": [L, B, Smax, Hkv, D], "lengths": [B]}``.
 ``decode_step`` writes the new K/V rows into the cache it is given, in
@@ -28,9 +33,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, attention_decode, attention_prefill, attn_qkv, attn_specs,
-    cache_update, embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
-    last_valid_slice, lm_head, rmsnorm, rope, rope_tables, stacked, unstack,
+    Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
+    attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
+    embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
+    rmsnorm, rope, rope_tables, stacked, unstack, with_remat,
 )
 
 
@@ -58,7 +64,8 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          q_block: int = 512, k_block: int = 1024) -> Model:
+          remat: str = "full", q_block: int = 512,
+          k_block: int = 1024) -> Model:
     pd = cfg.padded(1)
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L = cfg.d_model, cfg.num_layers
@@ -77,12 +84,16 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         """Seeded parameters on the model's device (``gen`` lives there)."""
         return init_tree(gen, specs, device, dtype)
 
+    def _ffn(lp, h):
+        """(FFN output, moe load-balancing term or 0)."""
+        if moe_dims is not None:
+            return moe_lib.moe_apply(lp["moe"], h, moe_dims)
+        return glu_apply(lp["ffn"], h), 0.0
+
     def _attn_out_ffn(x, o, lp):
         """Residual add of the attention output, second norm, FFN."""
         x, h2 = add_rmsnorm(x, o @ lp["attn"]["wo"], lp["ln2"], eps)
-        if moe_dims is not None:
-            return x + moe_lib.moe_apply(lp["moe"], h2, moe_dims)[0]
-        return x + glu_apply(lp["ffn"], h2)
+        return x + _ffn(lp, h2)[0]
 
     def _embed_input(params, batch):
         x = embed_tokens(params["embed"], batch["tokens"])
@@ -90,6 +101,40 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
             pre = batch["prefix_embeddings"].to(x.dtype)
             x = torch.cat([pre, x], dim=1)
         return x
+
+    # ---------------- train ----------------
+    def layer_train(x, lp, tables, window: int):
+        """One layer of the training forward -> (x, moe aux term)."""
+        B, S, _ = x.shape
+        h = rmsnorm(x, lp["ln1"], eps, train=True)
+        q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+        q, k = rope(q, tables), rope(k, tables)
+        o = attention_train(q, k, v, causal=True, window=window)
+        x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
+                            lp["ln2"], eps, train=True)
+        y, aux = _ffn(lp, h2)
+        return x + y, aux
+
+    layer = with_remat(layer_train, remat)
+
+    def _backbone_train(params, x):
+        tables = rope_tables(torch.arange(x.shape[1], device=x.device)[None],
+                             hd, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, lp in enumerate(unstack(params["layers"], L)):
+            x, a = layer(x, lp, tables, windows[i])
+            aux = aux + a
+        return x, aux
+
+    def loss_fn(params, batch):
+        """batch: ``tokens``, ``labels`` [B,S] (vlm: optional
+        ``prefix_embeddings`` [B,P,d] ahead of the tokens) -> the mean
+        cross-entropy over the text positions (+ 0.01 * moe aux), fp32."""
+        x, aux = _backbone_train(params, _embed_input(params, batch))
+        n_text = batch["tokens"].shape[1]
+        ce = chunked_loss(params["embed"], x[:, -n_text:], batch["labels"],
+                          eps)
+        return ce + 0.01 * aux
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
@@ -153,7 +198,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
-        decode_step=decode_step, init_cache=init_cache,
+        decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
         # moe excluded from prompt padding, as in the reference: junk
         # tokens contend for expert capacity
         extras={"prompt_pad": cfg.family != "moe"},

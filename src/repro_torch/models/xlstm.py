@@ -1,11 +1,15 @@
 """xLSTM, ssm family: pair-scanned (mLSTM, sLSTM) blocks, 12 layers = 6 pairs.
 
-Port of the serving parts of ``repro.models.xlstm``. mLSTM keeps a matrix
+Port of ``repro.models.xlstm``. mLSTM keeps a matrix
 memory ``[hd, hd]`` per head (plus its normalizer ``[hd]``) and runs a prompt
 through the chunked linear-attention core, which routes to the ``ssd_scan``
 kernel; sLSTM is a scalar-memory recurrence with a hidden-state feedback,
 run step by step in fp32 (its input projection is one GEMM over the whole
 prompt, hoisted out of the time loop).
+
+``loss_fn`` runs the same sequence path from a zero state with the plain
+RMSNorm and the plain chunked scan (``train=True``), each pair under
+``remat``, then ``chunked_loss``.
 
 Parameters keep the reference's tree, ``{"embed": {...}, "pairs": {"m":
 {...}, "s": {...}}}`` with every pair leaf stacked on a leading ``[npairs]``
@@ -26,8 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import softmax_scale
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, embed_specs, embed_tokens, init_tree, last_valid_slice,
-    lm_head, rmsnorm, silu, stacked, unstack,
+    Spec, add_rmsnorm, chunked_loss, embed_specs, embed_tokens, init_tree,
+    last_valid_slice, lm_head, rmsnorm, silu, stacked, unstack, with_remat,
 )
 from repro_torch.models.linear_core import (
     chunked_linear_attention, linear_attention_step, normalized_readout,
@@ -92,9 +96,11 @@ def _mlstm_out(p, y, z):
     return (y.reshape(B, S, -1) * silu(z)) @ p["w_down"]
 
 
-def _mlstm_seq(p, h, state, chunk: int, scale: float, vl=None):
+def _mlstm_seq(p, h, state, chunk: int, scale: float, vl=None,
+               train: bool = False):
     """Full-sequence mLSTM branch on the normed input ``h`` [B,S,d]. state:
-    (S [B,nh,hd,hd], n [B,nh,hd]). Returns (branch output, new state)."""
+    (S [B,nh,hd,hd], n [B,nh,hd]). Returns (branch output, new state);
+    ``train``: the plain scan."""
     c_in, z = _mlstm_up(p, h)
     q, k, v = _mlstm_qkv(p, c_in, scale)
     log_f, log_i = _mlstm_gates(p, c_in)
@@ -107,7 +113,7 @@ def _mlstm_seq(p, h, state, chunk: int, scale: float, vl=None):
     ones = torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)
     y_aug, st = chunked_linear_attention(
         q, k, torch.cat((v, ones), -1), log_f, log_i, chunk=chunk,
-        initial_state=torch.cat((Sm, Nm[..., None]), -1))
+        initial_state=torch.cat((Sm, Nm[..., None]), -1), train=train)
     return (_mlstm_out(p, normalized_readout(y_aug), z),
             (st[..., :-1], st[..., -1]))
 
@@ -159,20 +165,21 @@ def _slstm_seq(p, h0, state, vl=None):
     B, S, d = h0.shape
     w, r, b = _slstm_weights(p)
     pre = h0.float() @ w                      # [B,S,4d], the same GEMM per step
-    hs = torch.empty((B, S, d), dtype=torch.float32, device=h0.device)
+    hs = []
     valid = None
     if vl is not None:
         valid = (torch.arange(S, device=h0.device)[:, None]
                  < vl[None, :])[..., None]     # [S,B,1]
     carry = tuple(state)
     for t in range(S):
-        new, hs[:, t] = _slstm_cell(pre[:, t], r, b, carry)
+        new, h_t = _slstm_cell(pre[:, t], r, b, carry)
+        hs.append(h_t)
         if valid is None:
             carry = new
         else:
             carry = tuple(torch.where(valid[t], a, o)
                           for a, o in zip(new, carry))
-    return hs.to(h0.dtype) @ p["w_out"], carry
+    return torch.stack(hs, 1).to(h0.dtype) @ p["w_out"], carry
 
 
 def _slstm_step(p, h, state):
@@ -186,7 +193,7 @@ def _slstm_step(p, h, state):
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          chunk: int = 256) -> Model:
+          remat: str = "full", chunk: int = 256) -> Model:
     d, L = cfg.d_model, cfg.num_layers
     if L % 2:
         raise ValueError("xlstm pair-scan needs an even layer count")
@@ -205,15 +212,34 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         """Seeded parameters on the model's device (``gen`` lives there)."""
         return init_tree(gen, specs, device, dtype)
 
-    def _zero_state(B: int):
+    def _zero_state(B: int, n: int = npairs):
         def z(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
-        return {"m": (z(npairs, B, nh, hd, hd), z(npairs, B, nh, hd)),
-                "s": tuple(z(npairs, B, d) for _ in range(4))}
+        return {"m": (z(n, B, nh, hd, hd), z(n, B, nh, hd)),
+                "s": tuple(z(n, B, d) for _ in range(4))}
 
     def _layer(state, i: int):
         return ((state["m"][0][i], state["m"][1][i]),
                 tuple(s[i] for s in state["s"]))
+
+    def pair_train(x, pp):
+        """One (mLSTM, sLSTM) pair of the training forward from a zero
+        state."""
+        st = _zero_state(x.shape[0], 1)
+        mst, sst = _layer(st, 0)
+        dm, _ = _mlstm_seq(pp["m"], rmsnorm(x, pp["m"]["ln"], train=True),
+                           mst, chunk, scale, train=True)
+        x, h = add_rmsnorm(x, dm, pp["s"]["ln"], train=True)
+        return x + _slstm_seq(pp["s"], h, sst)[0]
+
+    pair = with_remat(pair_train, remat)
+
+    def loss_fn(params, batch):
+        """batch: ``tokens``, ``labels`` [B,S] -> mean cross-entropy, fp32."""
+        x = embed_tokens(params["embed"], batch["tokens"])
+        for pp in unstack(params["pairs"], npairs):
+            x = pair(x, pp)
+        return chunked_loss(params["embed"], x, batch["labels"], eps)
 
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
@@ -264,6 +290,6 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
-        decode_step=decode_step, init_cache=init_cache,
+        decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
         extras={"prompt_pad": True},
     )

@@ -195,7 +195,8 @@ def _pad_rows(cache: torch.Tensor, rows: torch.Tensor) -> Optional[int]:
 
 
 class LMServer:
-    """Continuous-batching server for one Model, on the model's device."""
+    """Continuous-batching server for one Model, on the model's device.
+    Admission, placement and decode steps run under ``torch.no_grad()``."""
 
     def __init__(self, model: Model, *, device="cuda", slots: int = 8,
                  max_len: int = 256, slo: float = 0.5,
@@ -379,6 +380,7 @@ class LMServer:
             batch["lengths"] = torch.from_numpy(vlens).to(self.device)
         return self.model.prefill(params, batch, max_len=self.max_len)
 
+    @torch.no_grad()
     def _admit(self, params) -> None:
         free = [s for s in range(self.slots) if s not in self._active]
         if not free or not self._queue:
@@ -429,6 +431,7 @@ class LMServer:
                         attrs={"batch": n, "padded_len": int(plen)})
         self._place(batch, logits, pcache, free, vlens, dt)
 
+    @torch.no_grad()
     def _place(self, batch, logits, pcache, free, vlens, dt) -> None:
         """Admission's second half: sample each request's first token from
         its prefill ``logits`` and move request ``i`` (row ``i`` of
@@ -465,6 +468,7 @@ class LMServer:
                      torch.from_numpy(vlens).to(dev), first,
                      torch.from_numpy(maxnews).to(dev))
 
+    @torch.no_grad()
     def _decode_once(self, params) -> None:
         if not self._active:
             return

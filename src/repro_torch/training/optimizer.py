@@ -1,0 +1,131 @@
+"""Optimizers written as functions on tensor trees (port of
+``repro.training.optimizer``).
+
+AdamW keeps fp32 moments and fp32 master weights for bf16 params (mixed
+precision); Adafactor is the low-memory alternative. The states are the
+reference's NamedTuples with its field names, and their trees mirror the
+param tree, so a checkpoint of either package restores in the other.
+Every update runs on the params' device with no host sync."""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+
+def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _step0(params) -> torch.Tensor:
+    dev = leaves(params)[0].device
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor   # int32 scalar
+    m: Any
+    v: Any
+    master: Any          # fp32 master copy of params
+
+
+def adamw_init(params) -> AdamWState:
+    return AdamWState(
+        step=_step0(params), m=tree_map(_f32_zeros, params),
+        v=tree_map(_f32_zeros, params),
+        master=tree_map(lambda p: p.detach().to(torch.float32, copy=True),
+                        params))
+
+
+def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+    """-> (new params in their dtypes, new state, global grad norm)."""
+    step = state.step + 1
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in leaves(grads)) + 1e-12)
+    scale = torch.clamp_max(grad_clip / gnorm, 1.0)
+    stepf = step.float()
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+
+    def upd(g, m, v, w):
+        g = g.float() * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        return m, v, w - lr * (u + weight_decay * w)
+
+    out = tree_map(upd, grads, state.m, state.v, state.master)
+    master = _nth(out, 2)
+    new_params = tree_map(lambda w, p: w.to(p.dtype), master, params)
+    return (new_params, AdamWState(step, _nth(out, 0), _nth(out, 1), master),
+            gnorm)
+
+
+def _nth(tree_of_tuples, i: int):
+    """The ``i``-th element of each leaf's tuple in a ``tree_map`` result
+    over a tree of dicts."""
+    if isinstance(tree_of_tuples, dict):
+        return {k: _nth(v, i) for k, v in tree_of_tuples.items()}
+    return tree_of_tuples[i]
+
+
+class AdafactorState(NamedTuple):
+    step: torch.Tensor   # int32 scalar
+    vr: Any              # row second moment (or the full v for < 2-D leaves)
+    vc: Any              # column second moment
+
+
+def adafactor_init(params) -> AdafactorState:
+    def rows(p):
+        return _f32_zeros(p if p.dim() < 2 else p[..., 0])
+
+    def cols(p):
+        if p.dim() < 2:
+            return torch.zeros((), dtype=torch.float32, device=p.device)
+        return _f32_zeros(p[..., 0, :])
+
+    return AdafactorState(step=_step0(params), vr=tree_map(rows, params),
+                          vc=tree_map(cols, params))
+
+
+def adafactor_update(grads, state: AdafactorState, params, *, lr,
+                     decay=0.8, eps=1e-30, clip=1.0):
+    """-> (new params, new state, 0.0 in place of a grad norm)."""
+    step = state.step + 1
+    beta = 1.0 - torch.pow(step.float(), -decay)
+
+    def upd(g, vr, vc, p):
+        g = g.float()
+        g2 = g * g + eps
+        if p.dim() < 2:
+            vr = beta * vr + (1 - beta) * g2
+            u = g / torch.sqrt(vr)
+        else:
+            vr = beta * vr + (1 - beta) * g2.mean(dim=-1)
+            vc = beta * vc + (1 - beta) * g2.mean(dim=-2)
+            r = vr / torch.clamp_min(vr.mean(dim=-1, keepdim=True), eps)
+            u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :])
+        rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+        u = u / torch.clamp_min(rms / clip, 1.0)
+        return vr, vc, (p.float() - lr * u).to(p.dtype)
+
+    out = tree_map(upd, grads, state.vr, state.vc, params)
+    zero = torch.zeros((), dtype=torch.float32, device=step.device)
+    return (_nth(out, 2), AdafactorState(step, _nth(out, 0), _nth(out, 1)),
+            zero)
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
+    """step -> fp32 learning rate: linear warmup, then a cosine to 0."""
+    def lr(step):
+        step = torch.as_tensor(step).float()
+        warm = base_lr * step / max(1, warmup)
+        t = torch.clamp((step - warmup) / max(1, total - warmup), 0.0, 1.0)
+        cos = 0.5 * base_lr * (1 + torch.cos(math.pi * t))
+        return torch.where(step < warmup, warm, cos)
+    return lr

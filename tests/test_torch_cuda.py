@@ -906,3 +906,75 @@ def test_cluster_lmserver_stack_on_card_matches_cpu(dev):
     assert seen_card == [("kernels", True)]
     assert card == cpu
     assert card["admission"]["shed"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_autograd_on_the_card(dev):
+    """No kernel may cut the autograd graph: each wrapper, given a CUDA
+    input that requires a gradient with autograd on, raises naming itself;
+    under ``torch.no_grad()`` the same call launches its kernel."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn((8, 64), gen, dev)
+    w = torch.ones(64, dtype=torch.bfloat16, device=dev)
+    q = _randn((2, 1, 4, 64), gen, dev)
+    kv = _randn((2, 16, 2, 64), gen, dev)
+    ln = torch.tensor([5, 16], dtype=torch.int32, device=dev)
+    qf, kf = _randn((2, 16, 4, 64), gen, dev), _randn((2, 16, 2, 64), gen, dev)
+    z = _randn((1, 8, 2, 16), gen, dev)
+    g = -torch.rand((1, 8, 2), generator=gen, device=dev)
+    calls = {
+        "rmsnorm_op": (rmsnorm_op, lambda r: (x.requires_grad_(r), w)),
+        "decode_attention_op": (decode_attention_op,
+                                lambda r: (q.requires_grad_(r), kv, kv, ln)),
+        "flash_attention_op": (flash_attention_op,
+                               lambda r: (qf.requires_grad_(r), kf, kf)),
+        "ssd_scan_op": (ssd_scan_op,
+                        lambda r: (z.requires_grad_(r), z, z, g, g)),
+    }
+    for name, (op, args) in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            op(*args(True))
+        before = op.launches
+        with torch.no_grad():
+            op(*args(True))
+        assert op.launches == before + 1, name
+        args(False)
+
+
+@pytest.mark.parametrize("kind", ["dense", "xlstm", "hymba", "encdec", "vlm",
+                                  "moe"])
+def test_training_step_on_card_matches_cpu(dev, kind):
+    """One ``loss_fn`` + backward of each reduced family on the card
+    against the CPU's plain path, the same weights and batch: the card
+    launches no kernel; the loss within 1 %, each gradient leaf within 8
+    bf16 roundings of the CPU leaf's largest |g| (40 for hymba's fp32 SSD
+    leaves ``d_skip`` and ``b_dt``: chip_smoke.py's ``GRAD_ROUNDINGS``)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.api import build_model
+    from repro_torch.training.grad_compress import _accumulate
+    from repro_torch.tree import flatten_with_paths
+
+    card = _small_model(kind, dev)
+    cpu = build_model(card.cfg, device="cpu",
+                      **({"chunk": 8} if kind == "xlstm" else {}))
+    params = cpu.init(torch.Generator().manual_seed(0))
+    seq = 16 + card.cfg.num_prefix_embeddings if kind == "vlm" else 32
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMData(
+        card.cfg, ShapeSpec("t", seq, 4, "train"), seed=2).batch_at(0).items()}
+    before = launch_counts()
+    loss, grads = _accumulate(card.loss_fn, _tree_to(params, dev),
+                              _tree_to(batch, dev), 1)
+    assert launch_counts() == before
+    cpu_loss, cpu_grads = _accumulate(cpu.loss_fn, params, batch, 1)
+    assert abs(float(loss) - float(cpu_loss)) <= 0.01 * abs(float(cpu_loss))
+    want = dict(flatten_with_paths(cpu_grads))
+    for path, g in flatten_with_paths(grads):
+        w = want[path]
+        limit = 40 if path.endswith(("ssd/d_skip", "ssd/b_dt")) else 8
+        err = float((g.cpu() - w).abs().max() / (w.abs().max() * 2.0 ** -8))
+        assert err <= limit, (path, err)

@@ -1,6 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (and
 ``chip_smoke.py``) loads neither ``jax`` nor the ``repro`` package, no
-source line of them or of ``examples/quickstart_torch.py`` imports them,
+source line of them or of ``examples/*_torch.py`` imports them,
 and ``chip_smoke.py`` refuses to run without a card or outside the
 repository."""
 
@@ -32,7 +32,8 @@ sys.exit(1 if bad or missing or len(names) < 20 else 0)
 # modules the guard must find (and import without loading JAX): the
 # frontend stack, the obs layer, the scenario CLI, the hybrid family, the
 # pipelines, the control plane, faults, the exporter and the validator,
-# the encoder-decoder and moe families and the serving launcher among them
+# the encoder-decoder and moe families, the serving launcher and the
+# training slice (data, optimizers, loop, checkpoints, launcher) among them
 MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.core.context", "repro_torch.core.straggler",
         "repro_torch.core.cache", "repro_torch.core.containers",
@@ -42,7 +43,11 @@ MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.pipeline.scenario", "repro_torch.cluster.plan",
         "repro_torch.faults.plan", "repro_torch.obs.export",
         "repro_torch.metrics.validate", "repro_torch.models.encdec",
-        "repro_torch.models.moe", "repro_torch.launch.serve")
+        "repro_torch.models.moe", "repro_torch.launch.serve",
+        "repro_torch.tree", "repro_torch.data.pipeline",
+        "repro_torch.training.optimizer", "repro_torch.training.grad_compress",
+        "repro_torch.training.train_loop",
+        "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train")
 
 
 def _env():
@@ -61,7 +66,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+        ROOT / "examples" / "train_lm_torch.py"]
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

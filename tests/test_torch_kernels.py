@@ -400,3 +400,56 @@ def test_ssd_scan_op_raises_on_a_ragged_chunk():
     with pytest.raises(ValueError):                 # initial state shape
         ssd_scan_op(z, z, z, g, g, chunk=4,
                     initial_state=torch.zeros((1, 2, 4, 5)))
+
+
+# ---------------------------------------------------------------------------
+# no kernel may cut the autograd graph
+# ---------------------------------------------------------------------------
+
+def test_refuse_autograd_raises_only_where_a_gradient_is_needed():
+    """The check every wrapper makes before it launches its kernel on the
+    card (tests/test_torch_cuda.py holds each wrapper to it there): it
+    raises, naming the wrapper, when autograd is on and an input requires a
+    gradient, and passes under ``torch.no_grad()`` or with none needed."""
+    from repro_torch.kernels import refuse_autograd
+
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="rmsnorm_op"):
+        refuse_autograd("rmsnorm_op", torch.ones(3), None, x)
+    with torch.no_grad():
+        refuse_autograd("rmsnorm_op", x)
+    refuse_autograd("rmsnorm_op", x.detach(), None)
+
+
+@pytest.mark.parametrize("name", ["g3", "x8", "h5", "ed1", "vl7", "mo6"])
+def test_training_forward_calls_no_kernel_wrapper(monkeypatch, name):
+    """Every family's ``loss_fn`` and its backward reach none of the four
+    kernel wrappers (on the card they would launch a kernel that has no
+    backward): each wrapper's name in the model code is replaced by one
+    that fails, and no launch count moves."""
+    from _torch_parity import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import common as TC
+    from repro_torch.models.api import build_model
+    from repro_torch.training.grad_compress import _accumulate
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called in training")
+
+    for mod, names in ((TC, ("rmsnorm_op", "flash_attention_op",
+                             "decode_attention_op")),
+                       (TLC, ("ssd_scan_op",))):
+        for n in names:
+            monkeypatch.setattr(mod, n, refuse)
+    cfg = configs(name)[1]
+    model = build_model(cfg, device="cpu",
+                        **({"chunk": 8} if name in ("x8", "h5") else {}))
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMData(
+        cfg, ShapeSpec("t", 32, 2, "train")).batch_at(0).items()}
+    before = launch_counts()
+    loss, grads = _accumulate(model.loss_fn, params, batch, 1)
+    assert torch.isfinite(loss)
+    assert launch_counts() == before

@@ -317,6 +317,37 @@ def test_temperature_sampling_distribution():
                        torch.tensor([1, 1, 1], dtype=torch.int32))
 
 
+@pytest.mark.parametrize("case", ["normal64", "four"])
+def test_temperature_sampling_matches_reference_on_bf16(case):
+    """On bf16 logits the reference divides by the temperature, draws its
+    Gumbel noise and adds it in bf16 (``jax.random.categorical``), which is
+    not the exact softmax: it under-samples the tail and favours low ids
+    among ties. 200,000 draws at T = 0.8 from each package's ``sample`` on
+    the same bf16 logits: the total variation distance between the two
+    frequency vectors stays under 0.02 (either package's own sampling noise
+    is about 0.005 here; the exact softmax lies 0.065 from the reference
+    on ``normal64``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.serving.sampler import sample as jsample
+
+    if case == "normal64":
+        vals = np.random.default_rng(0).normal(0, 2, 64) + 8
+    else:
+        vals = np.array([1.0, 2.0, 0.5, -1.0])
+    n, V = 200_000, len(vals)
+    jl = jnp.asarray(vals, jnp.bfloat16)
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
+    jtoks = np.asarray(jax.jit(jax.vmap(
+        lambda k: jsample(jl[None], k, temperature=0.8)[0]))(keys))
+    tl = torch.tensor(vals, dtype=torch.float32).to(torch.bfloat16)
+    ttoks = sample(tl[None].expand(n, V), torch.Generator().manual_seed(0),
+                   temperature=0.8).numpy()
+    jf = np.bincount(jtoks, minlength=V) / n
+    tf = np.bincount(ttoks, minlength=V) / n
+    assert 0.5 * np.abs(jf - tf).sum() < 0.02
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_placing_a_prefill_writes_what_admission_writes(fused):
     """``LMServer._place`` is admission's second half, and the way a
