@@ -142,7 +142,24 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    cut to 2 layers with its 1024 prefix rows, all at full width, and
    dbrx-132b at ``reduced_config`` width (``LOSS_TOL``, ``GRAD_ROUNDINGS``,
    ``OPT_RTOL``);
-14. print the figures, the card's name and power limit, one ``kernels`` JSON
+14. the launch tooling (``repro_torch.launch``): the dry run of the
+   reference's 32 arch x shape cells at full width on the meta device
+   (``python -m repro_torch.launch.dryrun``, started in the background at
+   the top of the run, the card hidden from it), one table row per cell
+   (arguments and peak GB, fits one 80 GB card, dot TFLOP, the roofline
+   terms), failing unless every record is ``ok``; flash at S=32,768 against
+   SDPA (the plain version would need a 64 GB score tensor); then four of
+   the reference's cells through ``launch.steps.build_step`` at full width
+   (``LAUNCH_CELLS``: hymba-1.5b x long_500k at its full shape, smollm-360m
+   x decode_32k cut to 32 slots, x prefill_32k at 32 prompts if they fit,
+   x train_4k cut to 16 sequences): ms per step and tokens/s, peak memory
+   within ``PEAK_SLACK`` of the dry run's estimate of the same shape, the
+   card's ``hlo_stats`` count equal to the meta count, the roofline
+   fraction at most ``FRACTION_LIMIT``, the kernels' launches rising in
+   the serving cells and none in training; phase 2 holds decode attention
+   at Smax 32,768 and 524,288 and flash at S=8,192 against their plain
+   versions first (``LONG_CASES``);
+15. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -161,9 +178,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
-FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
 SMS = 132                        # H100 SXM streaming multiprocessors
 
@@ -329,14 +343,6 @@ def graph_ms(fn, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound(nbytes, *work):
-    """Least ms for ``nbytes`` of device memory traffic and ``work``, pairs
-    (flops, peak rate of their type) whose times add."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(flops / peak for flops, peak in work) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def check(name, got, want, case):
     import torch
     rtol, atol = TOL[name]
@@ -383,8 +389,9 @@ def sdpa(q, k, v, mask):
 
 def _rmsnorm_case(dev, randn, n, d, residual):
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op, rmsnorm_work
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.launch.roofline import kernel_bound
 
     x, w = randn((n, d)), randn((d,), 0.25) + 1
     r = randn((n, d)) if residual else None
@@ -393,12 +400,11 @@ def _rmsnorm_case(dev, randn, n, d, residual):
     pairs = zip(got, want) if residual else [(got, want)]
     case = f"N={n} d={d} residual={residual}"
     err = max(check("rmsnorm", g, e, case) for g, e in pairs)
-    nbytes = (2 * n * d * 2 + d * 2) * (2 if residual else 1)
     lib = None
     if not residual and hasattr(F, "rms_norm"):
         lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
     return dict(case=case, max_abs_err=err,
-                bound=bound(nbytes, (4 * n * d, FP32_FLOPS)),
+                bound=kernel_bound(rmsnorm_work(n, d, residual=residual)),
                 **timings(lambda: rmsnorm_op(x, w, residual=r),
                           lambda: rmsnorm_ref(x, w, residual=r), lib))
 
@@ -407,8 +413,10 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
     import torch
     from repro_torch.kernels.decode_attention.decode_attention import (
         block_warps, cluster_size)
-    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_op, decode_attention_work)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.launch.roofline import kernel_bound
 
     q = randn((B, 1, Hq, D))
     k, v = randn((B, Smax, Hkv, D)), randn((B, Smax, Hkv, D))
@@ -417,11 +425,6 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
     want = decode_attention_ref(q, k, v, ln, window=window)
     case = f"B={B} Hq={Hq} Hkv={Hkv} D={D} Smax={Smax} window={window}"
     err = check("decode_attention", got, want, case)
-    # positions each sample reads: [max(0, len - window), min(len, Smax))
-    used = [min(n, Smax) - (max(0, n - window) if window else 0)
-            for n in lengths]
-    nbytes = 2 * B * Hq * D * 2 + B * 4 + 2 * sum(used) * Hkv * D * 2
-    flops = 4 * Hq * D * sum(used)
     pos = torch.arange(Smax, device=dev)
     lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
     mask = ((pos[None] < ln[:, None])
@@ -432,7 +435,8 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
         geometry=f"cluster C={c}, grid ({c}, {Hkv}, {B}) = "
                  f"{c * Hkv * B} blocks of "
                  f"{block_warps(Smax, window, c)} warps",
-        bound=bound(nbytes, (flops, BF16_TENSOR_FLOPS)),
+        bound=kernel_bound(decode_attention_work(
+            B, Hq, Hkv, D, Smax, window=window, lengths=lengths)),
         **timings(lambda: decode_attention_op(q, k, v, ln, window=window),
                   lambda: decode_attention_ref(q, k, v, ln, window=window),
                   sdpa(q, k, v, mask)))
@@ -446,8 +450,10 @@ def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
     cross-attention of S query rows over a memory of Sk rows)."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import geometry
-    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_op, flash_attention_work)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.roofline import kernel_bound
 
     Sk = Sk or S
     q = randn((B, S, Hq, D))
@@ -461,21 +467,10 @@ def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
             + (f" window={window}" if window else "")
             + ("" if causal else f" non-causal Sk={Sk}"))
     err = check("flash_attention", got, want, case)
-    # keys each row attends: causal, within the window, below kv_valid
+    work = flash_attention_work(B, S, Hq, Hkv, D, Sk=Sk, causal=causal,
+                                window=window, lengths=lens,
+                                kv_valid=lens is not None)
     lens = [Sk] * B if lens is None else lens
-    if causal:
-        n_valid = sum(max(0, min(r, n - 1) - max(0, r - window + 1 if window
-                                                 else 0) + 1)
-                      for n in lens for r in range(S)) * Hq
-    else:
-        n_valid = sum(lens) * S * Hq
-    # bytes: q read and out written for every row; K and V rows below
-    # kv_valid (every such key is in its own row's window); a sample
-    # with kv_valid == 0 reads only V, the mean over the key blocks the
-    # plain path visits, all S rows at S <= 512
-    kv_rows = sum(2 * n if n else Sk for n in lens)
-    nbytes = (2 * B * S * Hq * D * 2 + kv_rows * Hkv * D * 2
-              + (0 if kv is None else B * 4))
     pos, kpos = torch.arange(S, device=dev), torch.arange(Sk, device=dev)
     mask = torch.ones((S, Sk), dtype=torch.bool, device=dev)
     if causal:
@@ -490,7 +485,7 @@ def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
         geometry=f"{geo.m_tiles} M tiles of 64 (row, head) pairs, "
                  f"grid ({geo.m_tiles}, {Hkv}, {B}) = {geo.blocks} "
                  f"blocks, {geo.smem_bytes} B shared memory",
-        bound=bound(nbytes, (4 * D * n_valid, BF16_TENSOR_FLOPS)),
+        bound=kernel_bound(work),
         **timings(lambda: flash_attention_op(q, k, v, **kw),
                   lambda: flash_attention_ref(q, k, v, **kw),
                   sdpa(q, k, v, mask)))
@@ -577,6 +572,53 @@ FAMILY_CASES = {
 }
 
 
+# the launch cells' new lengths (phase 14), held against the plain versions
+# before anything is timed at them: decode at smollm's decode_32k (Smax
+# 32,768, G = 3, the cut batch of 32 at full and at spread lengths) and at
+# hymba's long_500k (its global caches: Smax 524,288, G = 5, B = 1); flash
+# at the longest prompt whose plain version fits the card (B = 1, S =
+# 8,192). Both kernels compute flat offsets in size_t
+# (decode_attention.cu:138, :161, :316; flash_attention.cu:178, :196, :341,
+# :362) and positions in int, which these lengths keep far below 2**31
+LONG_CASES = {
+    "decode_attention": [
+        (32, 15, 5, 64, 32768, 0, [32768] * 16 + [
+            1, 100, 4096, 8191, 16384, 20000, 32767, 32768, 30000, 2, 77,
+            12345, 31000, 5000, 25000, 32000]),
+        (1, 25, 5, 64, 524288, 0, [524288])],
+    "flash_attention": [dict(B=1, S=8192, Hq=15, Hkv=5, D=64, lens=None)],
+}
+
+
+def flash_vs_sdpa(dev, B=1, S=32768, Hq=15, Hkv=5, D=64):
+    """Flash at prefill_32k's length against SDPA (causal, exact prompt):
+    the plain version would need a [1, 15, 32768, 32768] fp32 score tensor
+    (64 GB), so SDPA is the cross-check here, held to the plain version's
+    tolerance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_op, flash_attention_work)
+    from repro_torch.launch.roofline import kernel_bound
+
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    q, k, v = ((torch.randn(shape, generator=gen, device=dev)
+                .to(torch.bfloat16))
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    got = flash_attention_op(q, k, v)
+    case = f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal, vs SDPA"
+    err = check("flash_attention", got, lib().transpose(1, 2), case)
+    return dict(case=case, max_abs_err=err,
+                bound=kernel_bound(flash_attention_work(B, S, Hq, Hkv, D)),
+                ms=graph_ms(lambda: flash_attention_op(q, k, v), reps=5),
+                library_ms=graph_ms(lib, reps=5))
+
+
 def kernel_cases(dev):
     import torch
 
@@ -640,6 +682,10 @@ def kernel_cases(dev):
                                 for c in FAMILY_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, **c)
                                for c in FAMILY_CASES["flash_attention"]]
+    out["decode_attention"] += [_decode_case(dev, randn, *c)
+                                for c in LONG_CASES["decode_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, **c)
+                               for c in LONG_CASES["flash_attention"]]
     return out
 
 
@@ -693,19 +739,6 @@ def decode_sweep(dev):
     return rows
 
 
-def scan_bound(B, S, H, dk, dv, W, state_in):
-    """Least time of one chunked scan: bytes of q, k, v, y (bf16), the
-    gates and the fp32 state (in where given, out), against the work it
-    needs per chunk: the causal half of q k^T (bf16 inputs, fp32 sums: the
-    tensor cores' rate), and in fp32 the causal half of P v and per step
-    the state read (q . S) and the state update (k^T v)."""
-    nbytes = (2 * (B * S * H * dk) + 2 * (B * S * H * dv)) * 2 \
-        + 2 * B * S * H * 4 + B * H * dk * dv * 4 * (2 if state_in else 1)
-    causal = (S // W) * W * (W + 1) // 2
-    return bound(nbytes, (2 * B * H * causal * dk, BF16_TENSOR_FLOPS),
-                 (2 * B * H * (causal * dv + 2 * S * dk * dv), FP32_FLOPS))
-
-
 def scan_cases(dev):
     """ssd_scan against its plain version at the xlstm prefill's shapes:
     (a) B=8 S=256 H=4 dk=dv=384 with padded gates and a zero state, (b) the
@@ -717,9 +750,10 @@ def scan_cases(dev):
     exact 3072-token prompt, B=1, 12 chunks."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op, ssd_scan_work
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import geometry
+    from repro_torch.launch.roofline import kernel_bound
     from repro_torch.models.linear_core import pad_mask_gates
 
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -788,7 +822,8 @@ def scan_cases(dev):
                      f"{geo.blocks} blocks of {geo.threads} threads, "
                      f"{geo.smem_bytes} B shared memory, {geo.blocks_per_sm} "
                      f"block(s) per SM, {geo.waves:.3f} waves on {SMS} SMs",
-            bound=scan_bound(B, S, H, hd, dv, min(chunk, S), True),
+            bound=kernel_bound(ssd_scan_work(B, S, H, hd, dv, chunk=chunk,
+                                      state_in=True)),
             **timings(lambda: ssd_scan_op(*args, chunk=chunk,
                                           initial_state=s0),
                       lambda: ssd_scan_ref(*args, chunk=chunk,
@@ -2756,6 +2791,7 @@ def train_smollm(dev, tmp):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import ARCHITECTURES
     from repro_torch.data.pipeline import data_iter
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.models.api import build_model
     from repro_torch.training.train_loop import (
         TrainConfig, make_train_step, train,
@@ -2842,16 +2878,16 @@ def train_smollm(dev, tmp):
                 tokens_per_s=tokens / med * 1e3,
                 model_tflops=6 * n_params * tokens / med / 1e9,
                 remat_tflops=2 * n_params * tokens / med / 1e9,
-                mfu=6 * n_params * tokens / med * 1e3 / BF16_TENSOR_FLOPS,
+                mfu=6 * n_params * tokens / med * 1e3 / PEAK_FLOPS,
                 mfu_remat=8 * n_params * tokens / med * 1e3
-                / BF16_TENSOR_FLOPS,
+                / PEAK_FLOPS,
                 peak_bytes=peak, losses=(losses[1], losses[15],
                                          losses[steps]),
                 resumed_losses=resumed_losses,
                 profile=prof, launches=launches,
                 ckpt_s=t_ckpt, free_ms=float(np.median(free_ms[2:])),
                 free_mfu=6 * n_params * tokens / float(np.median(
-                    free_ms[2:])) * 1e3 / BF16_TENSOR_FLOPS,
+                    free_ms[2:])) * 1e3 / PEAK_FLOPS,
                 free_spread_ms=(min(free_ms[2:]), max(free_ms[2:])))
 
 
@@ -2950,6 +2986,228 @@ def training_phases(dev):
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the launch tooling: the dry run of every cell, and four of the
+# reference's own cells through launch.steps on the card
+# ---------------------------------------------------------------------------
+
+# the dry run's estimate (arguments + peak of live bytes beyond them) may be
+# below the card's max_memory_allocated by at most this share: an estimate
+# that says "fits" and then runs out of memory is the failure that matters
+PEAK_SLACK = 1.25
+# a measured step may not beat its ideal time by more than this (that would
+# mean a count or a clock is wrong)
+FRACTION_LIMIT = 1.05
+# (arch, registry shape, cut batch or None, steps timed, kernels that must
+# launch). hymba x long_500k runs its full shape; smollm's decode_32k is cut
+# from 128 to 32 slots (its cache alone would need 172 GB); prefill_32k runs
+# 32 prompts if the dry run says that fits the card's free memory, else the
+# largest power of two that does; train_4k is cut from 256 to 16 sequences
+LAUNCH_CELLS = (
+    ("hymba-1.5b", "long_500k", None, 8, ("rmsnorm", "decode_attention")),
+    ("smollm-360m", "decode_32k", 32, 8, ("rmsnorm", "decode_attention")),
+    ("smollm-360m", "prefill_32k", None, 1, ("rmsnorm", "flash_attention")),
+    ("smollm-360m", "train_4k", 16, 2, ()),
+)
+
+
+def start_dryrun(out_dir):
+    """``python -m repro_torch.launch.dryrun`` over all 32 cells, on meta, in
+    the background (its CPU time overlaps the card's phases); the card is
+    hidden from it, so it takes the 80 GB default capacity."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_file = open(Path(out_dir) / "dryrun.log", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+             str(out_dir), "--force"], cwd=ROOT, env=env, stdout=log_file,
+            stderr=subprocess.STDOUT)
+    finally:
+        log_file.close()
+
+
+def collect_dryrun(proc, out_dir, timeout=900):
+    """The 32 records of the background dry run; fails unless it exited 0
+    with every record ``ok``."""
+    from repro_torch.configs.registry import all_cells
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the dry run did not end in {timeout} s")
+    text = (Path(out_dir) / "dryrun.log").read_text()
+    recs = [json.loads(p.read_text())
+            for p in sorted((Path(out_dir) / "baseline").glob("*.json"))]
+    cells = {(c.name, s.name) for c, s in all_cells()}
+    bad = [r for r in recs if not r.get("ok")]
+    if rc or bad or {(r["arch"], r["shape"]) for r in recs} != cells:
+        raise AssertionError(f"dry run: exit {rc}, {len(recs)} records, "
+                             f"failed {[(r['arch'], r['shape']) for r in bad]}"
+                             f"\n{text[-4000:]}")
+    return recs
+
+
+def dryrun_table(recs):
+    """One row per cell: the fit for one 80 GB card and the roofline terms."""
+    from repro_torch.launch import roofline
+    log("dry run, 32 cells at full width on meta (1 device, capacity 80 GB): "
+        "arch | shape | args GB | peak GB (args + temp) | fits | dot TFLOP "
+        "(bf16, f32) | kernel TFLOP | T_compute ms | T_memory ms | dominant "
+        "| model TFLOP | ideal GB | ideal ms | fraction (ideal / bound) | "
+        "extrapolated | trace s")
+    for r in recs:
+        c = roofline.cell_from_record(r)
+        ma, hlo = r["memory_analysis"], r["hlo"]
+        by = hlo["dot_flops_by_dtype"]
+        kern = sum(n for w in hlo["kernel_work"].values()
+                   for n in w["flops"].values())
+        log(f"  {r['arch']} | {r['shape']} | {ma['argument_bytes'] / 1e9:.3f}"
+            f" | {(ma['argument_bytes'] + ma['temp_bytes']) / 1e9:.3f} | "
+            f"{r['fits']} | {hlo['dot_flops'] / 1e12:.2f} ("
+            f"{by.get('bf16', 0) / 1e12:.2f}, {by.get('f32', 0) / 1e12:.2f}) "
+            f"| {kern / 1e12:.4f} | {c.t_compute * 1e3:.4f} | "
+            f"{c.t_memory * 1e3:.4f} | {c.dominant} | "
+            f"{c.model_flops_chip / 1e12:.2f} | {c.ideal_bytes_chip / 1e9:.3f}"
+            f" | {c.ideal_time * 1e3:.4f} | {c.fraction:.4f} | "
+            f"{r['extrapolated']} | {r['trace_s']}")
+    fit = [f"{r['arch']} x {r['shape']}" for r in recs if r["fits"]]
+    log(f"dry run: {len(fit)} of {len(recs)} cells fit one 80 GB card: "
+        f"{fit}")
+
+
+def card_cell(dev, arch, shape_name, batch, steps, kernels):
+    """One of the reference's cells through ``launch.steps.build_step`` on
+    the card (seeded random weights, ``make_concrete`` inputs; decode from a
+    full cache, lengths S - 1, every step the same position): ms per step
+    (CUDA events), tokens/s, peak memory against the dry run's estimate of
+    the same shape, the card's count against the meta count, the roofline
+    fraction, and the kernels' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch import dryrun, hlo_stats, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_step
+
+    cfg = ARCHITECTURES[arch]
+    reg = SHAPES_BY_NAME[shape_name]
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    B = batch or reg.global_batch
+    while True:
+        shape = dataclasses.replace(reg, global_batch=B)
+        est = dryrun.run_cell(arch, shape_name, cfg=cfg, shape=shape,
+                              verbose=False, capacity=free)
+        if not est["ok"]:
+            raise AssertionError(f"{arch} x {shape_name}: dry run "
+                                 f"{est['error']}")
+        if est["fits"] or batch or B == 1:
+            break
+        B //= 2
+    if not est["fits"]:
+        raise AssertionError(f"{arch} x {shape_name} at B={B} does not fit "
+                             f"the card's {free} free bytes")
+    ma = est["memory_analysis"]
+    est_bytes = ma["argument_bytes"] + ma["temp_bytes"]
+    base = torch.cuda.memory_allocated()
+    bundle = build_step(cfg, shape, make_local_mesh())
+    args = list(bundle.make_args(0))
+    # the steps' peak over what was live before the arguments: seeded init
+    # draws each weight in fp32 first, a transient that is not the step's
+    torch.cuda.reset_peak_memory_stats()
+    kind = shape.kind
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    _zero_counts()
+    ev[0].record()
+    for i in range(steps):
+        out = bundle.fn(*args)
+        if kind == "train":
+            args[0], args[1] = out[0], out[1]
+        elif kind == "decode":
+            args[2] = out[0].argmax(-1, keepdim=True).to(torch.int32)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    probe = out[2]["loss"] if kind == "train" else out[0]
+    if not torch.isfinite(probe.float()).all():
+        raise AssertionError(f"{arch} x {shape_name}: non-finite output")
+    del out, probe
+    missing = [k for k in kernels if not launches[k]]
+    if missing or (not kernels and any(launches.values())):
+        raise AssertionError(f"{arch} x {shape_name}: launches {launches}")
+    torch.cuda.empty_cache()
+    card = hlo_stats.count(bundle.fn, *args)          # untimed
+    if card.to_dict() != est["hlo"]:
+        raise AssertionError(f"{arch} x {shape_name}: the card's count "
+                             f"{card.to_dict()} != meta {est['hlo']}")
+    step_s = float(np.median(ms)) / 1e3
+    ideal = roofline.ideal_time(arch, shape)
+    frac = ideal / step_s
+    if peak > PEAK_SLACK * est_bytes:
+        raise AssertionError(f"{arch} x {shape_name}: peak {peak} B > "
+                             f"{PEAK_SLACK} x the estimate {est_bytes} B")
+    if frac > FRACTION_LIMIT:
+        raise AssertionError(f"{arch} x {shape_name}: roofline fraction "
+                             f"{frac} > {FRACTION_LIMIT}")
+    tokens = B * (1 if kind == "decode" else shape.seq_len)
+    del args, bundle
+    torch.cuda.empty_cache()
+    return dict(arch=arch, shape=shape_name, batch=B, seq=shape.seq_len,
+                cut=B != reg.global_batch, steps=steps, ms=ms,
+                step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                peak=peak, est=est_bytes, est_args=ma["argument_bytes"],
+                est_temp=ma["temp_bytes"], ideal_ms=ideal * 1e3,
+                fraction=frac, launches=launches,
+                card_memory=card.memory,
+                dot_tflop=card.dot_flops / 1e12,
+                kernel_work=card.to_dict()["kernel_work"])
+
+
+def launch_phases(dev, proc, out_dir):
+    """Phase 14: new kernel shapes' cross-check, the dry run's table, the
+    four cells on the card; returns each serving cell's launches."""
+    t0 = time.perf_counter()
+    r = flash_vs_sdpa(dev)
+    log(f"flash_attention {r['case']}: max_abs_err={r['max_abs_err']} "
+        f"ms={r['ms']} library_ms={r['library_ms']} bound_ms="
+        f"{r['bound'][0]} ({r['bound'][1]})")
+    recs = collect_dryrun(proc, out_dir)
+    log(f"dry run collected at {time.perf_counter() - t0:.1f} s into the "
+        f"phase")
+    dryrun_table(recs)
+    by_path = {}
+    for arch, shape, batch, steps, kernels in LAUNCH_CELLS:
+        t1 = time.perf_counter()
+        c = card_cell(dev, arch, shape, batch, steps, kernels)
+        label = f"{arch} x {shape}"
+        if kernels:
+            by_path[f"launch cell {label}"] = c["launches"]
+        log(f"launch cell {label}: B={c['batch']} S={c['seq']}"
+            f"{' (batch cut)' if c['cut'] else ''}; {c['steps']} step(s), "
+            f"ms per step median {c['step_ms']:.3f} (each "
+            f"{[round(x, 3) for x in c['ms']]}), {c['tokens_per_s']:.1f} "
+            f"tokens/s; peak {c['peak'] / 1e9:.3f} GB "
+            f"(max_memory_allocated) vs the dry run's {c['est'] / 1e9:.3f} GB"
+            f" (args {c['est_args'] / 1e9:.3f} + temp {c['est_temp'] / 1e9:.3f})"
+            f" = {c['peak'] / c['est']:.4f} of it (limit {PEAK_SLACK}); "
+            f"ideal {c['ideal_ms']:.4f} ms, fraction {c['fraction']:.4f}; "
+            f"card count == meta count (dot {c['dot_tflop']:.3f} TFLOP, "
+            f"kernels {c['kernel_work']}; live bytes on the card "
+            f"{c['card_memory']}); launches {c['launches']}; "
+            f"{time.perf_counter() - t1:.1f} s")
+    log(f"launch phase: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     # phase 13 runs under deterministic algorithms, which need a fixed
     # cuBLAS workspace; on an H100 this is PyTorch's default size (32 MiB),
@@ -2967,9 +3225,21 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda")
-    with torch.no_grad():              # serving: no kernel takes a gradient
-        kernels = phases(dev)
-    training_phases(dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = start_dryrun(out_dir)
+        try:
+            with torch.no_grad():      # serving: no kernel takes a gradient
+                kernels = phases(dev)
+            training_phases(dev)
+            by_path = launch_phases(dev, proc, out_dir)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k in kernels:
+        for path, counts in by_path.items():
+            k["launches_by_path"][path] = counts[k["name"]]
+        k["launches"] = sum(k["launches_by_path"].values())
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

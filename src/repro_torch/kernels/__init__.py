@@ -13,25 +13,77 @@ capture back and credits them on every replay (:func:`launch_counts`,
 No kernel has a backward: a wrapper that would launch its kernel on an
 input that needs a gradient raises (:func:`refuse_autograd`) rather than
 return an output cut from the graph. The training forward takes the plain
-versions."""
+versions.
+
+On meta tensors (shapes only) a wrapper returns empty outputs of the plain
+version's shapes and dtypes and computes nothing. Each ``ops.py`` also
+gives its kernel's :class:`Work`, read from shapes; while a recorder is
+active (:func:`recording`; ``repro_torch.launch.hlo_stats.count``) every
+wrapper call, on any device, hands the recorder its work and its outputs,
+and hides the aten ops that compute them, so a step counts the same on
+meta, CPU and CUDA tensors."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Callable, Dict, List, Optional
+import threading
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 _COUNTED: List[Callable] = []
+_RECORDER = threading.local()
 
 
-def counted(wrapper: Callable) -> Callable:
-    """Give a kernel wrapper its launch count (``wrapper.launches = 0``)
-    and register it with :func:`launch_counts`."""
-    wrapper.launches = 0
-    _COUNTED.append(wrapper)
-    return wrapper
+class Work(NamedTuple):
+    """What one kernel call must do: the bytes it must move (each input
+    read once, each output written once) and its operations by the dtype
+    whose peak rate they run at (``"bf16"``: tensor cores; ``"f32"``)."""
+
+    bytes: float
+    flops: Dict[str, float]
+
+
+def recorder() -> Optional[Any]:
+    """The active recorder of this thread, or None."""
+    return getattr(_RECORDER, "active", None)
+
+
+@contextlib.contextmanager
+def recording(rec):
+    """Make ``rec`` this thread's recorder: it needs ``hidden()``, a context
+    inside which it ignores the ops it sees, and ``kernel(name, work,
+    input tensors, outputs)``."""
+    prev = recorder()
+    _RECORDER.active = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER.active = prev
+
+
+def counted(name: str, work: Callable[..., Work]) -> Callable:
+    """Decorator of kernel ``name``'s wrapper: give it its launch count
+    (``wrapper.launches = 0``), register it with :func:`launch_counts`, and
+    under a recorder report each call's ``work(*args, **kwargs)``."""
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            rec = recorder()
+            if rec is None:
+                return fn(*args, **kwargs)
+            with rec.hidden():
+                out = fn(*args, **kwargs)
+            rec.kernel(name, work(*args, **kwargs),
+                       [a for a in (*args, *kwargs.values())
+                        if isinstance(a, torch.Tensor)], out)
+            return out
+        wrapper.launches = 0
+        _COUNTED.append(wrapper)
+        return wrapper
+    return deco
 
 
 def launch_counts() -> Dict[Callable, int]:

@@ -1,20 +1,44 @@
 """Checked decode-attention entry point (model layout).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (any Smax, G <= 8, even D <= 128, bf16). ``decode_attention_op.
-launches`` counts kernel launches."""
+raise (any Smax, G <= 8, even D <= 128, bf16); meta tensors get an empty
+output. ``decode_attention_op.launches`` counts kernel launches;
+:func:`decode_attention_work` is a call's work."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import counted, refuse_autograd, softmax_scale
+from repro_torch.kernels import Work, counted, refuse_autograd, softmax_scale
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
-@counted
+def decode_attention_work(B: int, Hq: int, Hkv: int, D: int, Smax: int, *,
+                          window: int = 0,
+                          lengths: Optional[Sequence[int]] = None,
+                          itemsize: int = 2) -> Work:
+    """q read and the output written, the lengths read, and the K and V
+    rows each sample attends, ``[max(0, len - window), min(len, Smax))``;
+    the q k and p v products (bf16 inputs). ``lengths`` None (shapes only,
+    as a wrapper call records it): every sample attends a full cache."""
+    lengths = [Smax] * B if lengths is None else lengths
+    used = sum(min(n, Smax) - (max(0, n - window) if window else 0)
+               for n in lengths)
+    nbytes = 2 * B * Hq * D * itemsize + B * 4 + 2 * used * Hkv * D * itemsize
+    return Work(nbytes, {"bf16": 4 * Hq * D * used})
+
+
+def _call_work(q, k_cache, v_cache, lengths, *, window=0,
+               scale=None) -> Work:
+    B, _, Hq, D = q.shape
+    return decode_attention_work(B, Hq, k_cache.shape[2], D,
+                                 k_cache.shape[1], window=window,
+                                 itemsize=q.element_size())
+
+
+@counted("decode_attention", _call_work)
 def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
                         window: int = 0,
@@ -39,6 +63,8 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     window=window, scale=scale)
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=v_cache.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_op: unsupported device {q.device}")
     refuse_autograd("decode_attention_op", q, k_cache, v_cache)

@@ -1,22 +1,65 @@
 """Checked prefill-attention entry point (model layout ``[B, S, H, D]``).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (bf16, D in {16, 32, 64, 128}, 16-byte aligned; any Sq, Sk).
-``flash_attention_op.launches`` counts kernel launches."""
+raise (bf16, D in {16, 32, 64, 128}, 16-byte aligned; any Sq, Sk); meta
+tensors get an empty output. ``flash_attention_op.launches`` counts kernel
+launches; :func:`flash_attention_work` is a call's work."""
 
 from __future__ import annotations
 
-from typing import Optional
+from collections import Counter
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import counted, refuse_autograd, softmax_scale
+from repro_torch.kernels import Work, counted, refuse_autograd, softmax_scale
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
-@counted
+def flash_attention_work(B: int, S: int, Hq: int, Hkv: int, D: int, *,
+                         Sk: Optional[int] = None, causal: bool = True,
+                         window: int = 0, q_offset: Optional[int] = None,
+                         lengths: Optional[Sequence[int]] = None,
+                         kv_valid: bool = False, itemsize: int = 2) -> Work:
+    """The (row, key) pairs attended: causal (row r at absolute position
+    ``q_offset + r``, default ``Sk - S``), within the window, below each
+    sample's key length (``lengths``; None, shapes only: all ``Sk``),
+    4 D bf16-input operations each (q k and p v). Bytes: q read and the
+    output written for every row; the K and V rows below each length (a
+    sample of length 0 reads V's ``Sk`` rows, as the plain path visits
+    them); the lengths, where ``kv_valid`` is read."""
+    Sk = Sk or S
+    off = Sk - S if q_offset is None else q_offset
+    lengths = [Sk] * B if lengths is None else lengths
+    pairs = 0
+    for n, times in Counter(lengths).items():
+        if not causal:
+            pairs += times * n * S
+            continue
+        pos = np.arange(S, dtype=np.int64) + off
+        lo = np.maximum(0, pos - window + 1) if window else 0
+        pairs += times * int(np.maximum(0, np.minimum(pos, n - 1) - lo
+                                        + 1).sum())
+    kv_rows = sum(2 * n if n else Sk for n in lengths)
+    nbytes = (2 * B * S * Hq * D * itemsize + kv_rows * Hkv * D * itemsize
+              + (B * 4 if kv_valid else 0))
+    return Work(nbytes, {"bf16": 4 * D * pairs * Hq})
+
+
+def _call_work(q, k, v, *, causal=True, window=0, q_block=512, k_block=1024,
+               scale=None, q_offset=None, kv_valid=None) -> Work:
+    B, S, Hq, D = q.shape
+    return flash_attention_work(B, S, Hq, k.shape[2], D, Sk=k.shape[1],
+                                causal=causal, window=window,
+                                q_offset=q_offset,
+                                kv_valid=kv_valid is not None,
+                                itemsize=q.element_size())
+
+
+@counted("flash_attention", _call_work)
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0,
                        q_block: int = 512, k_block: int = 1024,
@@ -49,6 +92,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    q_block=q_block, k_block=k_block,
                                    scale=scale, q_offset=q_offset,
                                    kv_valid=kv_valid)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
     refuse_autograd("flash_attention_op", q, k, v)

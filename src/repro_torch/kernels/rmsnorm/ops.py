@@ -2,7 +2,8 @@
 residual add fused in front.
 
 CPU tensors take the plain version; CUDA tensors launch the Triton kernel
-or raise. ``rmsnorm_op.launches`` counts kernel launches."""
+or raise; meta tensors get empty outputs. ``rmsnorm_op.launches`` counts
+kernel launches; :func:`rmsnorm_work` is a call's work."""
 
 from __future__ import annotations
 
@@ -10,13 +11,28 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import counted, refuse_autograd
+from repro_torch.kernels import Work, counted, refuse_autograd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
-@counted
+def rmsnorm_work(n: int, d: int, *, residual: bool = False,
+                 itemsize: int = 2) -> Work:
+    """N rows of d: x and the weight read, the output written (with the
+    residual: it is read and the sum written too); the fp32 square, sum,
+    scale and weight, 4 operations an element."""
+    nbytes = (2 * n * d + d) * itemsize * (2 if residual else 1)
+    return Work(nbytes, {"f32": 4 * n * d})
+
+
+def _call_work(x, w, *, eps=1e-5, residual=None) -> Work:
+    return rmsnorm_work(x.numel() // x.shape[-1], x.shape[-1],
+                        residual=residual is not None,
+                        itemsize=x.element_size())
+
+
+@counted("rmsnorm", _call_work)
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
                residual: Optional[torch.Tensor] = None):
     """x: [..., d]; w: [d] -> [..., d] in ``x.dtype``. With ``residual``
@@ -35,6 +51,9 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
                          "shaped, typed and placed like x")
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps, residual=residual)
+    if x.device.type == "meta":
+        out = torch.empty_like(x)
+        return out if residual is None else (torch.empty_like(x), out)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_op: unsupported device {x.device}")
     refuse_autograd("rmsnorm_op", x, w, residual)

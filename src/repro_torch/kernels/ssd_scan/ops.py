@@ -1,9 +1,10 @@
 """Checked chunked linear-attention scan (model layout ``[B, S, H, *]``).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (bf16 q, k, v; fp32 gates and state; dk <= 512; chunk <= 1024).
-``S % min(chunk, S) != 0`` raises on either device. ``ssd_scan_op.launches``
-counts kernel launches."""
+raise (bf16 q, k, v; fp32 gates and state; dk <= 512; chunk <= 1024); meta
+tensors get empty outputs. ``S % min(chunk, S) != 0`` raises on every
+device. ``ssd_scan_op.launches`` counts kernel launches;
+:func:`ssd_scan_work` is a call's work."""
 
 from __future__ import annotations
 
@@ -11,12 +12,36 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import counted, refuse_autograd
+from repro_torch.kernels import Work, counted, refuse_autograd
 from repro_torch.kernels.ssd_scan.ref import check_chunk, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, MAX_DK, ssd_scan
 
 
-@counted
+def ssd_scan_work(B: int, S: int, H: int, dk: int, dv: int, *, chunk: int,
+                  state_in: bool, itemsize: int = 2) -> Work:
+    """q, k, v read and y written, the two fp32 gates read, the fp32 state
+    written (and read where one is given); per chunk of ``W = min(chunk,
+    S)`` the causal half of q k^T (bf16 inputs, fp32 sums: the tensor
+    cores' rate), and in fp32 the causal half of P v and per step the state
+    read (q . S) and update (k^T v)."""
+    W = min(chunk, S)
+    nbytes = ((2 * B * S * H * dk + 2 * B * S * H * dv) * itemsize
+              + 2 * B * S * H * 4 + B * H * dk * dv * 4 * (2 if state_in
+                                                             else 1))
+    causal = (S // W) * W * (W + 1) // 2
+    return Work(nbytes, {"bf16": 2 * B * H * causal * dk,
+                         "f32": 2 * B * H * (causal * dv + 2 * S * dk * dv)})
+
+
+def _call_work(q, k, v, log_f, log_i, *, chunk=256,
+               initial_state=None) -> Work:
+    B, S, H, dk = q.shape
+    return ssd_scan_work(B, S, H, dk, v.shape[-1], chunk=chunk,
+                         state_in=initial_state is not None,
+                         itemsize=q.element_size())
+
+
+@counted("ssd_scan", _call_work)
 def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_f: torch.Tensor, log_i: torch.Tensor, *,
                 chunk: int = 256,
@@ -50,6 +75,10 @@ def ssd_scan_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ssd_scan_ref(q, k, v, log_f, log_i, chunk=chunk,
                             initial_state=initial_state)
+    if q.device.type == "meta":
+        return (torch.empty((B, S, H, dv), dtype=v.dtype, device=q.device),
+                torch.empty((B, H, dk, dv), dtype=torch.float32,
+                            device=q.device))
     if q.device.type != "cuda":
         raise ValueError(f"ssd_scan_op: unsupported device {q.device}")
     refuse_autograd("ssd_scan_op", *tensors)

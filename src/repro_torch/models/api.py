@@ -4,7 +4,8 @@ container narrow waist, paper §4.4, at the model-definition level).
 
 Entry points run on the card unless the caller asks for the CPU: ``device``
 defaults to ``"cuda"`` and raises when no card is present; it never falls
-back to the CPU."""
+back to the CPU. ``build_model(device="meta")`` builds a model of shapes
+only, which computes nothing (the launch tooling's dry run counts it)."""
 
 from __future__ import annotations
 
@@ -55,7 +56,9 @@ def build_model(cfg: ModelConfig, *, device="cuda",
     (``"full"``, ``"dots"`` or ``"none"``; ``common.with_remat``)."""
     from repro_torch.models import encdec, hymba, transformer, xlstm
 
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     modules = {"dense": transformer, "moe": transformer, "vlm": transformer,
                "ssm": xlstm, "hybrid": hymba, "encdec": encdec}
     if cfg.family in modules:

@@ -32,8 +32,9 @@ sys.exit(1 if bad or missing or len(names) < 20 else 0)
 # modules the guard must find (and import without loading JAX): the
 # frontend stack, the obs layer, the scenario CLI, the hybrid family, the
 # pipelines, the control plane, faults, the exporter and the validator,
-# the encoder-decoder and moe families, the serving launcher and the
-# training slice (data, optimizers, loop, checkpoints, launcher) among them
+# the encoder-decoder and moe families, the serving launcher, the
+# training slice (data, optimizers, loop, checkpoints, launcher) and the
+# launch and sharding tooling among them
 MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.core.context", "repro_torch.core.straggler",
         "repro_torch.core.cache", "repro_torch.core.containers",
@@ -47,7 +48,11 @@ MUST = ("repro_torch.core.frontend", "repro_torch.core.selection",
         "repro_torch.tree", "repro_torch.data.pipeline",
         "repro_torch.training.optimizer", "repro_torch.training.grad_compress",
         "repro_torch.training.train_loop",
-        "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train")
+        "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+        "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+        "repro_torch.launch.inputs", "repro_torch.launch.steps",
+        "repro_torch.launch.hlo_stats", "repro_torch.launch.dryrun",
+        "repro_torch.launch.roofline")
 
 
 def _env():

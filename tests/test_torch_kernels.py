@@ -211,16 +211,22 @@ def test_flash_attention_plain_matches_pallas(Hq, Hkv, window):
 
 
 def test_wrappers_refuse_other_devices_and_bad_layouts():
+    """Inputs on two devices and bad layouts raise; meta tensors (shapes
+    only) get empty outputs of the plain version's shapes."""
     x = torch.zeros((2, 8), device="meta")
-    with pytest.raises(ValueError):
-        rmsnorm_op(x, torch.zeros((8,), device="meta"))
+    with pytest.raises(ValueError):                 # two devices
+        rmsnorm_op(x, torch.zeros((8,)))
+    assert rmsnorm_op(x, torch.zeros((8,), device="meta")).shape == (2, 8)
     q = torch.zeros((1, 1, 2, 8), device="meta")
     kv = torch.zeros((1, 4, 1, 8), device="meta")
     with pytest.raises(ValueError):
-        decode_attention_op(q, kv, kv, torch.zeros((1,), dtype=torch.int32,
-                                                   device="meta"))
+        decode_attention_op(q, kv, kv, torch.zeros((1,), dtype=torch.int32))
+    out = decode_attention_op(q, kv, kv, torch.zeros(
+        (1,), dtype=torch.int32, device="meta"))
+    assert (out.device.type, out.shape) == ("meta", (1, 1, 2, 8))
     with pytest.raises(ValueError):
-        flash_attention_op(q, kv, kv)
+        flash_attention_op(q, torch.zeros((1, 4, 1, 8)), kv)
+    assert flash_attention_op(q, kv, kv).shape == (1, 1, 2, 8)
     with pytest.raises(ValueError):                 # non-contiguous x
         rmsnorm_op(torch.zeros((8, 2)).t(), torch.zeros((8,)))
     with pytest.raises(TypeError):                  # int64 lengths
@@ -395,8 +401,13 @@ def test_ssd_scan_op_raises_on_a_ragged_chunk():
     assert y.shape == (1, 12, 2, 4) and st.shape == (1, 2, 4, 4)
     y, st = ssd_scan_op(z, z, z, g, g, chunk=256)   # min(256, 12) = 12
     assert y.shape == (1, 12, 2, 4)
-    with pytest.raises(ValueError):                 # meta: no path
-        ssd_scan_op(*(t.to("meta") for t in (z, z, z, g, g)), chunk=4)
+    with pytest.raises(ValueError, match="multiple of the chunk"):  # meta
+        ssd_scan_op(*(t.to("meta") for t in (z, z, z, g, g)), chunk=8)
+    y, st = ssd_scan_op(*(t.to("meta") for t in (z, z, z, g, g)), chunk=4)
+    assert (y.device.type, y.shape, st.shape) == ("meta", (1, 12, 2, 4),
+                                                  (1, 2, 4, 4))
+    with pytest.raises(ValueError):                 # two devices
+        ssd_scan_op(z.to("meta"), z, z, g, g, chunk=4)
     with pytest.raises(ValueError):                 # initial state shape
         ssd_scan_op(z, z, z, g, g, chunk=4,
                     initial_state=torch.zeros((1, 2, 4, 5)))
