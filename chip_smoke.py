@@ -6,10 +6,9 @@ Run from the repository root with no arguments::
 
 Phases, each of which fails the run (nonzero exit) if it fails:
 
-1. build every kernel of the serving path from the checkout: the CUDA
-   sources in ``src/repro_torch/csrc`` (one ``nvcc`` each, all at once,
-   linked into one library under ``build/kernels/``) and the Triton
-   RMSNorm;
+1. build every kernel of the serving path from the checkout: the four
+   CUDA sources in ``src/repro_torch/csrc`` (one ``nvcc`` each, all at
+   once, linked into one library under ``build/kernels/``);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes (tolerances below), and the attention kernels also
    at smollm's context (prefill S=1024 and 2048, decode Smax=2048); time
@@ -28,7 +27,16 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    sample); flash at rung 8 with 2 and 4 prompts), and for phases 10-12's
    (``FAMILY_CASES``: flash non-causal and at G = 7 and G = 6 with D =
    128, decode at G = 1, 7 and 6, RMSNorm at d = 1024, 896 and 6144),
-   appended to each kernel's cases;
+   appended to each kernel's cases; RMSNorm also on its scalar path (d =
+   1001, and rows not 16-byte aligned), each case's launch geometry
+   printed; the launch floor (an empty kernel of one block, with and
+   without programmatic dependent launch, PDL) beside the RMSNorm cases;
+   RMSNorm through its C entry point at every rows-a-block choice, with
+   and without PDL, and after a GEMM (``rmsnorm_sweep``); 20 PDL launches
+   after a ``torch.matmul`` captured in one CUDA graph, its programmatic
+   edges counted and its replay equal to the eager run bit for bit; the
+   host's split of one eager RMSNorm call (wrapper Python, allocation,
+   stream lookup, the launch call);
 2b. the Clipper frontend stack: every named scenario with its selection
    state on the card and on the CPU, reports equal byte for byte (wall ms
    of each, policy-state device-to-host copies per query); a 1,048,576 x 4
@@ -248,7 +256,7 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:58",
 }
 SOURCES = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/rmsnorm.py"),
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu"),
     "ssd_scan": ("cuda", "src/repro_torch/csrc/ssd_scan.cu"),
@@ -387,23 +395,31 @@ def sdpa(q, k, v, mask):
     return call
 
 
-def _rmsnorm_case(dev, randn, n, d, residual):
+def _rmsnorm_case(dev, randn, n, d, residual, offset=0):
+    """RMSNorm at N rows of d against its plain version, timed; with
+    ``offset`` the rows (x and the residual) start that many bf16 values
+    into a buffer, so they are not 16-byte aligned."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_op, rmsnorm_work
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import geometry
     from repro_torch.launch.roofline import kernel_bound
 
-    x, w = randn((n, d)), randn((d,), 0.25) + 1
-    r = randn((n, d)) if residual else None
+    def rows():
+        return randn((n * d + offset,))[offset:].view(n, d)
+    x, w = rows(), randn((d,), 0.25) + 1
+    r = rows() if residual else None
     got = rmsnorm_op(x, w, residual=r)
     want = rmsnorm_ref(x, w, residual=r)
     pairs = zip(got, want) if residual else [(got, want)]
-    case = f"N={n} d={d} residual={residual}"
+    case = (f"N={n} d={d} residual={residual}"
+            + (f" rows offset by {offset} values" if offset else ""))
     err = max(check("rmsnorm", g, e, case) for g, e in pairs)
     lib = None
     if not residual and hasattr(F, "rms_norm"):
         lib = lambda: F.rms_norm(x, (d,), w, 1e-5)  # noqa: E731
     return dict(case=case, max_abs_err=err,
+                geometry=geometry(n, d, offset % 8 == 0)._asdict(),
                 bound=kernel_bound(rmsnorm_work(n, d, residual=residual)),
                 **timings(lambda: rmsnorm_op(x, w, residual=r),
                           lambda: rmsnorm_ref(x, w, residual=r), lib))
@@ -572,6 +588,13 @@ FAMILY_CASES = {
 }
 
 
+# RMSNorm's scalar path: d not a multiple of 8 (decode rows, and with the
+# residual), and rows whose start is not 16-byte aligned (one bf16 value
+# off: decode rows, and a prefill batch with the residual)
+RMSNORM_EDGE_CASES = [(8, 1001, False), (37, 1001, True),
+                      (8, 960, False, 1), (2048, 960, True, 1)]
+
+
 # the launch cells' new lengths (phase 14), held against the plain versions
 # before anything is timed at them: decode at smollm's decode_32k (Smax
 # 32,768, G = 3, the cut batch of 32 at full and at spread lengths) and at
@@ -682,6 +705,8 @@ def kernel_cases(dev):
                                 for c in FAMILY_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, **c)
                                for c in FAMILY_CASES["flash_attention"]]
+    out["rmsnorm"] += [_rmsnorm_case(dev, randn, *c)
+                       for c in RMSNORM_EDGE_CASES]
     out["decode_attention"] += [_decode_case(dev, randn, *c)
                                 for c in LONG_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, **c)
@@ -737,6 +762,220 @@ def decode_sweep(dev):
             check("decode_attention", out.view(B, 1, Hq, D), want, case)
             rows.append((case, graph_ms(call)))
     return rows
+
+
+# RMSNorm's shapes for the rows-a-block sweep: decode rows at three widths
+# (one warp a row at 960 and 1600, four at 6144), a mid-size batch, and
+# the prefill rows of PERF.md's table
+RMSNORM_SWEEP = [(8, 960, False), (8, 1600, False), (8, 6144, False),
+                 (256, 960, False), (2048, 960, False), (8192, 1024, True),
+                 (16384, 1600, True), (2048, 6144, True)]
+
+
+def _rmsnorm_raw(lib, x, w, y, r, s, g, pdl):
+    """One launch of geometry ``g`` through the C entry point (no wrapper,
+    no count)."""
+    import torch
+    from repro_torch.kernels import _build
+    n, d = x.shape
+    _build.check(lib.rmsnorm_bf16(
+        x.data_ptr(), 0 if r is None else r.data_ptr(), w.data_ptr(),
+        y.data_ptr(), 0 if s is None else s.data_ptr(), n, d, 1e-5, g.vec,
+        g.per_thread, g.row_warps, g.rows_per_block, pdl,
+        torch.cuda.current_stream().cuda_stream), "rmsnorm")
+
+
+def _rmsnorm_geometries(n, d):
+    """Every 16-byte geometry the kernel takes for N rows of d: 1, 2, 4 or
+    8 warps a row (up to 8 loads a thread), 1-8 rows a block (up to 256
+    threads)."""
+    from repro_torch.kernels.rmsnorm.rmsnorm import (
+        MAX_PER_THREAD, MAX_THREADS, Geometry)
+    units = d // 8
+    for warps in (1, 2, 4, 8):
+        per = -(-units // (32 * warps))
+        if per > MAX_PER_THREAD[8]:
+            continue
+        for rows in (1, 2, 4, 8):
+            if 32 * warps * rows <= MAX_THREADS:
+                yield Geometry(8, per, warps, rows, 32 * warps * rows,
+                               -(-n // rows))
+
+
+def rmsnorm_sweep(dev):
+    """RMSNorm through its C entry point at every geometry it takes (warps
+    a row, rows a block; ``_rmsnorm_geometries``) with PDL, and the chosen
+    one without as well: what ``rmsnorm.py::geometry`` is chosen from. Then
+    a GEMM ([8,
+    960] x [960, 960], smollm's attention output projection at decode)
+    alone, and followed by the norm of its output with and without PDL: the
+    norm's marginal time after the kernel it waits on. Every output is held
+    against the plain version."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm as K
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    lib = K._bound()
+    rows = []
+    for n, d, residual in RMSNORM_SWEEP:
+        x, w = randn((n, d)), randn((d,), 0.25) + 1
+        r = randn((n, d)) if residual else None
+        y = torch.empty_like(x)
+        s = torch.empty_like(x) if residual else None
+        want = rmsnorm_ref(x, w, residual=r)
+        chosen = K.geometry(n, d)
+        for g in _rmsnorm_geometries(n, d):
+            for pdl in (0, 1) if g == chosen else (1,):
+                def call(g=g, pdl=pdl):
+                    _rmsnorm_raw(lib, x, w, y, r, s, g, pdl)
+                call()
+                case = (f"N={n} d={d} residual={residual} row_warps="
+                        f"{g.row_warps} per_thread={g.per_thread} "
+                        f"rows_per_block={g.rows_per_block} pdl={pdl}"
+                        + (" (chosen)" if g == chosen else ""))
+                check("rmsnorm", y, want[1] if residual else want, case)
+                if residual:
+                    check("rmsnorm", s, want[0], case)
+                rows.append((case, graph_ms(call)))
+    a, b = randn((8, 960)), randn((960, 960), 960 ** -0.5)
+    w = randn((960,), 0.25) + 1
+    h = torch.empty((8, 960), dtype=torch.bfloat16, device=dev)
+    y = torch.empty_like(h)
+    g = K.geometry(8, 960)
+
+    def gemm():
+        torch.matmul(a, b, out=h)
+    rows.append(("GEMM [8, 960] x [960, 960] alone", graph_ms(gemm)))
+    for pdl in (0, 1):
+        def pair(pdl=pdl):
+            gemm()
+            _rmsnorm_raw(lib, h, w, y, None, None, g, pdl)
+        pair()
+        check("rmsnorm", y, rmsnorm_ref(h, w), f"after the GEMM pdl={pdl}")
+        rows.append((f"GEMM then N=8 d=960 pdl={pdl}", graph_ms(pair)))
+    return rows
+
+
+def rmsnorm_floor(dev):
+    """The launch floor: the empty kernel of one block (it waits on its
+    predecessor and releases its dependents, nothing else), 20 launches in
+    one CUDA graph and back to back from Python, with and without PDL."""
+    import torch
+    from repro_torch.kernels.rmsnorm.rmsnorm import empty
+
+    out = {}
+    for pdl in (False, True):
+        def call(pdl=pdl):
+            empty(pdl, torch.cuda.current_stream().cuda_stream)
+        out[pdl] = dict(ms=graph_ms(call), eager_ms=cuda_ms(call))
+    return out
+
+
+def rmsnorm_pdl_graph(dev, links=20):
+    """``links`` RMSNorm launches chained after a ``torch.matmul`` (each
+    norm reads the one before; every other one with the residual), captured
+    in one CUDA graph: the graph's programmatic edges, which must be one
+    into each norm, and its replay, which must equal the eager run bit for
+    bit. The capture's counts are taken back (it launches nothing)."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+    from repro_torch.kernels.rmsnorm.rmsnorm import programmatic_edges
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    a, b = randn((8, 960)), randn((960, 960), 960 ** -0.5)
+    ws = [randn((960,), 0.25) + 1 for _ in range(links)]
+
+    def chain():
+        x = s = torch.matmul(a, b)
+        outs = []
+        for i, w in enumerate(ws):
+            if i % 2:
+                s, x = rmsnorm_op(x, w, residual=s)
+            else:
+                x = rmsnorm_op(x, w)
+            outs += [x, s]
+        return outs
+    eager = [t.clone() for t in chain()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = rmsnorm_op.launches
+    with torch.cuda.graph(graph):
+        captured = chain()
+    rmsnorm_op.launches = before
+    edges = programmatic_edges(graph.raw_cuda_graph())
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, e) for g, e in zip(captured, eager))
+    if edges != links or not equal:
+        raise AssertionError(f"rmsnorm PDL graph: {edges} programmatic "
+                             f"edges for {links} launches; replay == eager: "
+                             f"{equal}")
+    return dict(links=links, edges=edges, equal=equal)
+
+
+def rmsnorm_host_split(dev, reps=2000):
+    """Where the host's time goes in one eager ``rmsnorm_op`` call (N=8,
+    d=960, without and with the residual): host ms a call of the whole
+    wrapper, of its output allocations (``torch.empty_like``, one or two),
+    of the current stream's lookup, and of the ``ctypes`` launch call with
+    its arguments ready; the rest is the wrapper's Python (checks, views,
+    the geometry lookup, the count). Host clock over ``reps`` calls, the
+    device kept ahead of the host (a call's device time is ~1/5 of it)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm as K
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+
+    def host_ms(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0) / reps
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for residual in (False, True):
+        x, r = (torch.randn((8, 960), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        r = r if residual else None
+        w = torch.ones(960, dtype=torch.bfloat16, device=dev)
+        y, s = torch.empty_like(x), torch.empty_like(x)
+        g = K.geometry(8, 960)
+        lib = K._bound()
+        args = (x.data_ptr(), 0 if r is None else r.data_ptr(), w.data_ptr(),
+                y.data_ptr(), 0 if r is None else s.data_ptr(), 8, 960, 1e-5,
+                g.vec, g.per_thread, g.row_warps, g.rows_per_block, K.PDL,
+                K.current_stream(x))
+        before = rmsnorm_op.launches
+        total = host_ms(lambda: rmsnorm_op(x, w, residual=r))
+        rmsnorm_op.launches = before
+        alloc = host_ms((lambda: (torch.empty_like(x), torch.empty_like(x)))
+                        if residual else (lambda: torch.empty_like(x)))
+        stream = host_ms(lambda: K.current_stream(x))
+        launch = host_ms(lambda: lib.rmsnorm_bf16(*args))
+        out.append(dict(residual=residual, call_ms=total, alloc_ms=alloc,
+                        stream_ms=stream, launch_ms=launch,
+                        python_ms=total - alloc - stream - launch))
+    return out
 
 
 def scan_cases(dev):
@@ -875,7 +1114,7 @@ def serve(model, params, dev, *, kernels, max_len, max_prompt, slo=0.5,
         return LMServer(model, device=dev, slots=8, max_len=max_len,
                         slo=slo, temperature=0.0, seed=0)
 
-    # warm-up: cuBLAS handles, Triton compile, allocator; not measured
+    # warm-up: cuBLAS handles, allocator; not measured
     warm = make_server()
     for n in (8, 100):
         warm.submit(rng.integers(0, vocab, size=n), max_new_tokens=4)
@@ -2091,6 +2330,7 @@ def phases(dev):
     t0 = time.perf_counter()
     cases = kernel_cases(dev)
     cases["ssd_scan"] = scan_cases(dev)
+    floor = rmsnorm_floor(dev)
     log(f"kernels vs plain: {time.perf_counter() - t0:.1f} s")
     for kname, rows in cases.items():
         for r in rows:
@@ -2104,8 +2344,23 @@ def phases(dev):
                 log(f"    launch: {r['geometry']}")
             if kname == "ssd_scan":
                 log(f"    kernel / bound = {r['ms'] / r['bound'][0]}")
+        if kname == "rmsnorm":
+            for pdl, f in floor.items():
+                log(f"  rmsnorm launch floor, empty kernel of one block, "
+                    f"pdl={pdl}: ms={f['ms']} eager_ms={f['eager_ms']}")
     for case, ms in decode_sweep(dev):
         log(f"  decode_attention geometry sweep {case}: ms={ms}")
+    for case, ms in rmsnorm_sweep(dev):
+        log(f"  rmsnorm geometry sweep {case}: ms={ms}")
+    pg = rmsnorm_pdl_graph(dev)
+    log(f"rmsnorm PDL under capture: {pg['links']} launches after a "
+        f"torch.matmul in one CUDA graph, {pg['edges']} programmatic edges; "
+        f"replay == eager bit for bit: {pg['equal']}")
+    for r in rmsnorm_host_split(dev):
+        log(f"rmsnorm eager call, host ms (N=8 d=960 residual="
+            f"{r['residual']}): call {r['call_ms']}, of it allocation "
+            f"{r['alloc_ms']}, stream lookup {r['stream_ms']}, ctypes launch "
+            f"{r['launch_ms']}, wrapper Python {r['python_ms']}")
     for kname in ("flash_attention", "decode_attention"):
         r = cases[kname][HEADLINE[kname]]
         ratio = (None if r["library_ms"] is None
@@ -2273,6 +2528,9 @@ def phases(dev):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             eager_ms=r["eager_ms"], case=r["case"],
+            **({"launch_floor_ms": {("pdl" if p else "no_pdl"): f["ms"]
+                                    for p, f in floor.items()}}
+               if kname == "rmsnorm" else {}),
             cases=[dict(case=c["case"], max_abs_err=c["max_abs_err"],
                         **{k: c[k] for k in ("state_max_abs_err", "geometry")
                            if k in c},
@@ -2391,7 +2649,7 @@ def slot_decode(model, params, dev, batch, *, max_len, kernels, steps=32):
         step_s = time.perf_counter() - t0
         return srv, prefill_s, step_s
 
-    run(True)                          # warm-up: cuBLAS, Triton, allocator
+    run(True)                          # warm-up: cuBLAS, allocator
     _zero_counts()
     srv, prefill_s, step_s = run(True)
     launches = _counts()

@@ -4,9 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C function. At first use every
 source compiles with its own ``nvcc`` (all started at once) into an object
 file, and the objects link into ``build/kernels/repro_torch_kernels-<hash>
 .so`` under the repository root. The hash covers the sources and the flags,
-so an edited source builds anew and an unchanged tree loads what is built.
-The Triton kernels compile in Triton's own cache, which
-``triton_cache_dir`` points under ``build/`` as well."""
+so an edited source builds anew and an unchanged tree loads what is built."""
 
 from __future__ import annotations
 
@@ -22,7 +20,7 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 BUILD_DIR = BUILD_ROOT / "kernels"
-SOURCES = ("decode_attention", "flash_attention", "ssd_scan")
+SOURCES = ("decode_attention", "flash_attention", "rmsnorm", "ssd_scan")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v")
@@ -100,14 +98,6 @@ def load() -> ctypes.CDLL:
             if _lib is None:
                 _lib = ctypes.CDLL(str(path))
     return _lib
-
-
-def triton_cache_dir() -> str:
-    """Keep Triton's compiled kernels beside the CUDA ones (unless the caller
-    chose a cache directory already)."""
-    path = os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT / "triton"))
-    Path(path).mkdir(parents=True, exist_ok=True)
-    return path
 
 
 def check(err: int, name: str) -> None:

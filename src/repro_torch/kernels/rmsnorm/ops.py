@@ -1,9 +1,10 @@
 """Checked RMSNorm entry point (any leading dims), optionally with the
 residual add fused in front.
 
-CPU tensors take the plain version; CUDA tensors launch the Triton kernel
-or raise; meta tensors get empty outputs. ``rmsnorm_op.launches`` counts
-kernel launches; :func:`rmsnorm_work` is a call's work."""
+CPU tensors take the plain version; CUDA tensors launch the CUDA kernel
+or raise (it takes bf16 x and weight, d up to 16,384); meta tensors get
+empty outputs. ``rmsnorm_op.launches`` counts kernel launches;
+:func:`rmsnorm_work` is a call's work."""
 
 from __future__ import annotations
 
@@ -13,8 +14,7 @@ import torch
 
 from repro_torch.kernels import Work, counted, refuse_autograd
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-
-_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm
 
 
 def rmsnorm_work(n: int, d: int, *, residual: bool = False,
@@ -39,35 +39,32 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
     (shaped like ``x``): returns ``(x + residual, rmsnorm(x + residual))``,
     the norm reading the sum before it is rounded."""
     d = x.shape[-1]
-    if w.device != x.device or w.shape != (d,):
+    dev = x.device
+    if w.device != dev or w.shape != (d,):
         raise ValueError(f"rmsnorm_op: weight {tuple(w.shape)} on {w.device} "
-                         f"does not match x [..., {d}] on {x.device}")
+                         f"does not match x [..., {d}] on {dev}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm_op: x and w must be contiguous")
     if residual is not None and (
             residual.shape != x.shape or residual.dtype != x.dtype
-            or residual.device != x.device or not residual.is_contiguous()):
+            or residual.device != dev or not residual.is_contiguous()):
         raise ValueError("rmsnorm_op: residual must be a contiguous tensor "
                          "shaped, typed and placed like x")
-    if x.device.type == "cpu":
+    kind = dev.type
+    if kind == "cpu":
         return rmsnorm_ref(x, w, eps=eps, residual=residual)
-    if x.device.type == "meta":
+    if kind == "meta":
         out = torch.empty_like(x)
         return out if residual is None else (torch.empty_like(x), out)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm_op: unsupported device {x.device}")
+    if kind != "cuda":
+        raise ValueError(f"rmsnorm_op: unsupported device {dev}")
     refuse_autograd("rmsnorm_op", x, w, residual)
-    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm_op: dtypes {x.dtype}, {w.dtype}")
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm
-
-    x2 = x.view(-1, d)
-    out = torch.empty_like(x2)
-    out_sum = None if residual is None else torch.empty_like(x2)
-    if x2.shape[0]:
-        rmsnorm(x2, w, out, eps,
-                None if residual is None else residual.view(-1, d), out_sum)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"rmsnorm_op: the kernel takes bf16 x and weight; "
+                        f"got {x.dtype}, {w.dtype}")
+    out = torch.empty_like(x)
+    out_sum = None if residual is None else torch.empty_like(x)
+    if x.numel():
+        rmsnorm(x, w, out, eps, residual, out_sum)
         rmsnorm_op.launches += 1
-    if residual is None:
-        return out.view(x.shape)
-    return out_sum.view(x.shape), out.view(x.shape)
+    return out if residual is None else (out_sum, out)

@@ -20,7 +20,7 @@ exactly one device-to-host copy per step, the packed ``[tokens ‖ done]``.
 
 On the card the fused step is the counterpart of the reference's one jitted
 program: the first step with a params tree runs eagerly (on a side stream,
-as PyTorch's capture rules ask; it compiles Triton and warms cuBLAS), the
+as PyTorch's capture rules ask; it warms cuBLAS and the allocator), the
 next captures the step once as a CUDA graph, and every later step replays
 it. The graph reads the slot state and the params at fixed addresses, so
 admission writes the slot state in place, and a step given another params

@@ -63,15 +63,25 @@ def _close(got, want, rtol, atol):
                                atol=atol)
 
 
+def _rows(gen, dev, n, d, offset):
+    """[n, d] bf16 rows starting ``offset`` values into a buffer (offset 1:
+    the rows are contiguous but not 16-byte aligned)."""
+    return _randn((n * d + offset,), gen, dev)[offset:].view(n, d)
+
+
+# the paths' widths (decode rows at 8, prefill batches), d = 1001 (not a
+# multiple of 8: the scalar path) and 20,000 rows of 960, more than the
+# card holds warps at once
 @pytest.mark.parametrize("n,d", [(1, 960), (37, 960), (8, 64), (5, 3000),
                                  (8, 1600), (8, 896), (8, 1024), (8, 6144),
-                                 (2048, 896), (1024, 1024), (512, 6144)])
+                                 (2048, 896), (1024, 1024), (512, 6144),
+                                 (8, 1001), (20000, 960)])
 @pytest.mark.parametrize("residual", [False, True])
-def test_rmsnorm_kernel(dev, n, d, residual):
+def test_rmsnorm_kernel(dev, n, d, residual, offset=0):
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = _randn((n, d), gen, dev)
+    x = _rows(gen, dev, n, d, offset)
     w = _randn((d,), gen, dev, 0.25) + 1
-    r = _randn((n, d), gen, dev) if residual else None
+    r = _rows(gen, dev, n, d, offset) if residual else None
     before = rmsnorm_op.launches
     got = rmsnorm_op(x, w, residual=r)
     torch.cuda.synchronize()
@@ -81,6 +91,60 @@ def test_rmsnorm_kernel(dev, n, d, residual):
         _close(got[0], want[0], 0, 0)         # one bf16 add: exact
         got, want = got[1], want[1]
     _close(got, want, BF16_ULP, 1e-5)
+
+
+@pytest.mark.parametrize("n,d,offset", [(8, 960, 1), (37, 1600, 4),
+                                        (2048, 896, 1), (5, 6144, 2)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_kernel_on_rows_not_16_byte_aligned(dev, n, d, offset,
+                                                    residual):
+    """Rows whose ``data_ptr()`` is 2, 4 or 8 bytes past a 16-byte
+    boundary take the kernel's scalar path, held as test_rmsnorm_kernel
+    holds the aligned ones."""
+    from repro_torch.kernels.rmsnorm.rmsnorm import geometry
+    assert geometry(n, d, False).vec == 1
+    test_rmsnorm_kernel(dev, n, d, residual, offset)
+
+
+def test_rmsnorm_pdl_launches_replay_from_a_graph(dev):
+    """20 RMSNorm launches, each with programmatic dependent launch, chained
+    after a ``torch.matmul`` (each norm reads the one before, every other
+    one with the residual) and captured in one CUDA graph: the graph has a
+    programmatic edge into each norm, and its replay equals the eager run
+    bit for bit."""
+    from repro_torch.kernels.rmsnorm.rmsnorm import PDL, programmatic_edges
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b = _randn((8, 960), gen, dev), _randn((960, 960), gen, dev, 0.03)
+    ws = [_randn((960,), gen, dev, 0.25) + 1 for _ in range(20)]
+
+    def chain():
+        x = s = torch.matmul(a, b)
+        outs = []
+        for i, w in enumerate(ws):
+            if i % 2:
+                s, x = rmsnorm_op(x, w, residual=s)
+            else:
+                x = rmsnorm_op(x, w)
+            outs += [x, s]
+        return outs
+    eager = [t.clone() for t in chain()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        captured = chain()
+    assert PDL
+    assert programmatic_edges(graph.raw_cuda_graph()) == 20
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
 
 
 DECODE_CASES = [
@@ -346,6 +410,14 @@ def test_wrappers_raise_on_unsupported_card_inputs(dev):
     ln = torch.ones((1,), dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):                   # fp32: no kernel, no fallback
         decode_attention_op(q, kv, kv, ln)
+    x32 = torch.zeros((8, 64), device=dev)
+    with pytest.raises(TypeError):                   # fp32 x and weight
+        rmsnorm_op(x32, torch.ones(64, device=dev))
+    with pytest.raises(TypeError):                   # bf16 x, fp32 weight
+        rmsnorm_op(x32.bfloat16(), torch.ones(64, device=dev))
+    with pytest.raises(ValueError):                  # wider than 8 warps hold
+        rmsnorm_op(torch.zeros((2, 16392), dtype=torch.bfloat16, device=dev),
+                   torch.ones(16392, dtype=torch.bfloat16, device=dev))
     with pytest.raises(TypeError):
         flash_attention_op(q, kv, kv)
     qb = torch.zeros((1, 1, 4, 48), device=dev, dtype=torch.bfloat16)
