@@ -167,7 +167,21 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    the serving cells and none in training; phase 2 holds decode attention
    at Smax 32,768 and 524,288 and flash at S=8,192 against their plain
    versions first (``LONG_CASES``);
-15. print the figures, the card's name and power limit, one ``kernels`` JSON
+15. the four example twins, ``examples/*_torch.py``, each through its
+   ``main(["--device", "cuda"])`` (the kernels' counts set to 0 just before
+   and read just after: this path runs none of them) and again on the CPU;
+   each card run allocates on the card, each CPU run does not: the cascade
+   pipeline and the flash crowd print the CPU's output byte for byte; the
+   ensemble's error counts agree within ``ENSEMBLE_ERR_QUERIES`` of 400,
+   its Exp4 weights within ``ENSEMBLE_WEIGHT_RTOL`` of themselves, its
+   other lines byte for byte, and its five trained predictors answer on
+   the card; the adaptive batching demo's three AIMD lines as measured on
+   the card; then the Fig 3 spectrum's latency profile on the card (the
+   five predictors of ``examples/common_torch.py``, ``time_batch`` at
+   ``PROFILE_SIZES``, ``fit_linear_latency``'s base and per-item time and
+   the batch its fit puts at the 20 ms SLO), beside the card's name and
+   power limit;
+16. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -3466,6 +3480,172 @@ def launch_phases(dev, proc, out_dir):
     return by_path
 
 
+# the ensemble twin, card against CPU: tests/test_torch_examples.py's
+# tolerances, twin against reference (a phase's error count within this
+# many of its 400 queries, each Exp4 weight within this share of itself)
+ENSEMBLE_ERR_QUERIES = 1
+ENSEMBLE_WEIGHT_RTOL = 1e-4
+# the Fig 3 latency profile's batch sizes (the kernel SVM's broadcast
+# difference is b x 4096 x 64 fp32, 4 GiB at the largest, twice over)
+PROFILE_SIZES = (1, 4, 16, 64, 256, 1024, 4096)
+EXAMPLE_SLO = 0.020
+
+
+def _load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, device):
+    """``mod.main(["--device", device])`` with its standard output caught:
+    (its result, the output, wall seconds, the card's allocations during
+    the run)."""
+    import contextlib
+    import io
+
+    import torch
+
+    def allocations():       # the key appears with the first allocation
+        return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+    before = allocations()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(["--device", str(device)])
+    wall = time.perf_counter() - t0
+    return res, out.getvalue(), wall, allocations() - before
+
+
+def _example_on_both(name, dev):
+    """The twin on the CPU and on the card: the card allocates, the CPU
+    run does not; returns both runs."""
+    mod = _load_example(f"{name}_torch")
+    cpu = _run_example(mod, "cpu")
+    card = _run_example(mod, dev)
+    if cpu[3] != 0 or card[3] <= 0:
+        raise AssertionError(f"{name}: {cpu[3]} card allocations on the "
+                             f"CPU run, {card[3]} on the card's")
+    return cpu, card
+
+
+_PHASE_LINE = "] err="
+
+
+def _ensemble_lines(out):
+    """The ensemble's phase lines apart from the rest of its output."""
+    lines = out.splitlines()
+    return ([x for x in lines if _PHASE_LINE in x],
+            [x for x in lines if _PHASE_LINE not in x])
+
+
+def fig3_profile(dev, smi):
+    """The Fig 3 spectrum's latency profile on the card: ``time_batch``
+    (median of 5) at ``PROFILE_SIZES``, ``fit_linear_latency``'s (base,
+    per-item), the batch that fit puts at the 20 ms SLO and the largest
+    measured batch within it."""
+    import numpy as np
+    import torch
+
+    common = _load_example("common_torch")
+    rng = np.random.default_rng(0)
+    fns = common.make_containers(rng, dev)
+    for name, fn in fns.items():
+        y = fn(torch.zeros((2, common.D_FEAT), device=dev))
+        if y.device.type != "cuda" or y.shape != (2, common.N_CLASSES):
+            raise AssertionError(f"fig3 {name}: output {y.device} {y.shape}")
+        ms = {}
+        for b in PROFILE_SIZES:
+            x = rng.normal(size=(b, common.D_FEAT)).astype(np.float32)
+            ms[b] = 1e3 * common.time_batch(fn, x, iters=5, device=dev)
+        base, per_item = common.fit_linear_latency(fn, rng, device=dev)
+        within = [b for b in PROFILE_SIZES if ms[b] <= 1e3 * EXAMPLE_SLO]
+        log(f"fig3 profile {name} on {smi}: ms per batch "
+            + ", ".join(f"b={b} {t:.4f}" for b, t in ms.items())
+            + f"; fit_linear_latency base {1e3 * base:.4f} ms, per item "
+            f"{1e6 * per_item:.5f} us, so {(EXAMPLE_SLO - base) / per_item:.0f}"
+            f" rows at {1e3 * EXAMPLE_SLO:.0f} ms; largest measured batch "
+            f"within it: {max(within, default=0)}")
+
+
+def examples_phase(dev, smi):
+    """Phase 15: the four example twins' ``main()`` on the card (counts set
+    to 0 just before, read just after: the path runs none of the four
+    kernels). The virtual-clock examples print the CPU's output byte for
+    byte; the ensemble's error counts, Exp4 weights and other lines agree
+    with the CPU's, and its predictors answer on the card; the adaptive
+    batching demo's AIMD lines and the Fig 3 profile are measured on the
+    card; returns the kernels' launches on the path."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    for name in ("cascade_pipeline", "flash_crowd_autoscale"):
+        cpu, card = _example_on_both(name, dev)
+        if card[1] != cpu[1]:
+            raise AssertionError(f"{name}: the card's output differs from "
+                                 f"the CPU's")
+        log(f"example {name}: card output == CPU output "
+            f"({len(card[1].splitlines())} lines, {len(card[1])} bytes); "
+            f"card {card[2]:.3f} s, CPU {cpu[2]:.3f} s; "
+            f"{card[3]} card allocations")
+
+    cpu, card = _example_on_both("ensemble_serving", dev)
+    (card_lines, card_rest), (cpu_lines, cpu_rest) = (
+        _ensemble_lines(card[1]), _ensemble_lines(cpu[1]))
+    if card_rest != cpu_rest or len(card_lines) != 3:
+        raise AssertionError("ensemble_serving: the card's lines differ "
+                             "from the CPU's")
+    for phase, (e, ce, w, cw) in enumerate(zip(
+            card[0]["errors"], cpu[0]["errors"], card[0]["weights"],
+            cpu[0]["weights"])):
+        if abs(round(400 * e) - round(400 * ce)) > ENSEMBLE_ERR_QUERIES:
+            raise AssertionError(f"ensemble_serving phase {phase}: error "
+                                 f"{e} on the card, {ce} on the CPU")
+        if not (np.abs(w - cw) <= ENSEMBLE_WEIGHT_RTOL * cw).all():
+            raise AssertionError(f"ensemble_serving phase {phase}: weights "
+                                 f"{w} on the card, {cw} on the CPU")
+    x = torch.zeros((1, 64), device=dev)
+    for i, predict in enumerate(card[0]["predictors"]):
+        if predict(x).device.type != "cuda":
+            raise AssertionError(f"ensemble_serving: m{i} ran off the card")
+    gap = max(float(np.max(np.abs(w - cw) / cw)) for w, cw in zip(
+        card[0]["weights"], cpu[0]["weights"]))
+    for line in card_lines + card_rest[-1:]:
+        log(f"example ensemble_serving (card): {line.strip()}")
+    log(f"example ensemble_serving: card vs CPU error counts "
+        f"{[round(400 * e) for e in card[0]['errors']]} vs "
+        f"{[round(400 * e) for e in cpu[0]['errors']]} of 400, weights "
+        f"within {gap:.3e} of themselves (limit {ENSEMBLE_WEIGHT_RTOL}), "
+        f"other lines equal; card {card[2]:.3f} s, CPU {cpu[2]:.3f} s; "
+        f"{card[3]} card allocations")
+
+    mod = _load_example("adaptive_batching_demo_torch")
+    paths, out, wall, allocs = _run_example(mod, dev)
+    if allocs <= 0 or sorted(paths) != ["big_mlp", "kernel_svm",
+                                        "linear_svm"]:
+        raise AssertionError(f"adaptive_batching_demo: {allocs} card "
+                             f"allocations, paths {sorted(paths)}")
+    for name, hist in paths.items():
+        if not all(np.isfinite(t) and t > 0 for _, t in hist):
+            raise AssertionError(f"adaptive_batching_demo {name}: a batch "
+                                 f"time is not positive")
+    for line in out.splitlines()[:3]:
+        log(f"example adaptive_batching_demo (card, {smi}): {line}")
+    log(f"example adaptive_batching_demo: {wall:.3f} s; largest batch "
+        + ", ".join(f"{n} {max(b for b, _ in h)}" for n, h in paths.items()))
+    launches = _counts()
+    fig3_profile(dev, smi)
+    log(f"examples phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # phase 13 runs under deterministic algorithms, which need a fixed
     # cuBLAS workspace; on an H100 this is PyTorch's default size (32 MiB),
@@ -3490,6 +3670,7 @@ def main() -> int:
                 kernels = phases(dev)
             training_phases(dev)
             by_path = launch_phases(dev, proc, out_dir)
+            by_path["examples"] = examples_phase(dev, smi)
         finally:
             if proc.poll() is None:
                 proc.kill()

@@ -1050,3 +1050,63 @@ def test_training_step_on_card_matches_cpu(dev, kind):
         limit = 40 if path.endswith(("ssd/d_skip", "ssd/b_dt")) else 8
         err = float((g.cpu() - w).abs().max() / (w.abs().max() * 2.0 ** -8))
         assert err <= limit, (path, err)
+
+
+# ---------------------------------------------------------------------------
+# the examples' predictors (examples/common_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+def _examples_common():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "common_torch.py"
+    spec = importlib.util.spec_from_file_location("common_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fig3_predictors_on_card_match_cpu(dev):
+    """The five predictors of the Fig 3 spectrum, the same weights on the
+    card and on the CPU (bit-equal), at the demo's batch sizes: outputs on
+    the card within 1e-5 of the largest |output| (fp32 products summed in
+    other orders; TF32 would miss it by far: tests/test_torch_examples.py's
+    ``PRED_RTOL``)."""
+    import numpy as np
+
+    T = _examples_common()
+    card = T.make_containers(np.random.default_rng(0), dev)
+    cpu = T.make_containers(np.random.default_rng(0), "cpu")
+    for b in (1, 7, 64, 241):
+        x = np.random.default_rng(b).normal(size=(b, T.D_FEAT)).astype(
+            np.float32)
+        for name in cpu:
+            got = card[name](torch.from_numpy(x).to(dev))
+            assert got.device.type == "cuda", name
+            want = cpu[name](torch.from_numpy(x))
+            gap = float((got.cpu() - want).abs().max() / want.abs().max())
+            assert gap <= 1e-5, (name, b, gap)
+
+
+def test_train_linear_model_on_card_matches_cpu(dev):
+    """The ensemble's linear model trained on the card against the CPU:
+    the same draws from the numpy generator, class probabilities within
+    1e-5 and the same class on 1,000 seeded points
+    (tests/test_torch_examples.py's ``TRAIN_ATOL``)."""
+    import numpy as np
+
+    T = _examples_common()
+    rc, rg = np.random.default_rng(3), np.random.default_rng(3)
+    W, _ = T.make_task(rc)
+    T.make_task(rg)
+    card = T.train_linear_model(rc, W, noise=0.3, device=dev)
+    cpu = T.train_linear_model(rg, W, noise=0.3, device="cpu")
+    assert rc.bit_generator.state == rg.bit_generator.state
+    x = np.random.default_rng(9).normal(size=(1000, T.D_FEAT)).astype(
+        np.float32)
+    got = card(torch.from_numpy(x).to(dev))
+    assert got.device.type == "cuda"
+    want = cpu(torch.from_numpy(x))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))

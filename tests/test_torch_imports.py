@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module (and
 ``chip_smoke.py``) loads neither ``jax`` nor the ``repro`` package, no
-source line of them or of ``examples/*_torch.py`` imports them,
+source line of them or of ``examples/*_torch.py`` imports them or the
+reference's ``benchmarks`` folder,
 and ``chip_smoke.py`` refuses to run without a card or outside the
 repository."""
 
@@ -70,9 +71,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_no_source_line_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-        ROOT / "examples" / "train_lm_torch.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {p.name for p in examples} >= {
+        "quickstart_torch.py", "train_lm_torch.py", "common_torch.py",
+        "cascade_pipeline_torch.py", "flash_crowd_autoscale_torch.py",
+        "adaptive_batching_demo_torch.py", "ensemble_serving_torch.py"}
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -83,7 +87,8 @@ def test_no_source_line_imports_jax_or_repro():
             else:
                 continue
             for m in mods:
-                assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), (
+                assert m.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                               "benchmarks"), (
                     f"{path}: imports {m}")
 
 
