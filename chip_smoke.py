@@ -181,7 +181,34 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    ``PROFILE_SIZES``, ``fit_linear_latency``'s base and per-item time and
    the batch its fit puts at the 20 ms SLO), beside the card's name and
    power limit;
-16. print the figures, the card's name and power limit, one ``kernels`` JSON
+16. the sharded paths on ``torch.distributed`` (``sharded_phases``): 16a
+   an NCCL world of one rank (mesh (1, 1)) serving dbrx-132b cut to 4
+   layers through the sharded code path and ``LMServer`` (calibrated
+   simulation, greedy), its decode step captured with the collectives
+   inside, the streams equal to the unsharded server's bit for bit; then
+   ``SHARD_RANKS`` gloo ranks sharing the card (``launch.mesh.run_ranks``,
+   spawned after phase 1 built the kernels; the one-device weights handed
+   over as CUDA handles, each rank taking views of its experts): 16b the
+   same dbrx ``ep`` over (1, 4), 4 experts a rank, routed as the
+   one-device card run's recorded router calls route (other expert sets
+   only at a router near-tie, as in 12), prefill logits within
+   ``SHARDED_LOGIT_TOL`` of the one-device card run's (and with the
+   expert sum broken, as a negative control, ``FAULT_MARGIN`` times
+   beyond it) and greedy streams
+   equal across ranks and to the one device's but where the ranks' own
+   logits row at the parting step lies within ``SHARDED_LOGIT_TOL`` of
+   the one device's, an eager ms a step and the collective bytes a step
+   (host-staged collectives on one card, not a multi-card figure); 16c
+   smollm-360m (heads padded for 4 ranks) prefilling a 2048-token prompt
+   context-parallel, 512 rows a rank, logits and cache bit-equal to the
+   one-device prefill; 16d the pod-compressed training step of
+   smollm-360m cut to ``POD_LAYERS`` layers on (pod 2, data 2), its
+   gradients within ``POD_QUANTA`` of the one-device step's and only int8
+   payloads and fp32 scalars crossing ``pod``, 2 steps timed; the
+   kernels' launches (counts set to 0 before each path, read after, the
+   ranks' summed) are the ``"sharded"`` path; phase 2 holds flash at the
+   context-parallel shapes first (``CP_CASES``);
+17. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits nonzero before printing anything. It imports
@@ -473,11 +500,13 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
 
 
 def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
-                Sk=None):
+                Sk=None, q_offset=None):
     """``lens`` None: an exact prompt (no kv_valid); ``window`` > 0: each
     row attends to its last ``window`` keys; ``causal`` False: every row
     attends every key below kv_valid (an encoder; with ``Sk`` keys, a
-    cross-attention of S query rows over a memory of Sk rows)."""
+    cross-attention of S query rows over a memory of Sk rows); ``q_offset``
+    (causal, with ``Sk`` keys): the S query rows sit at absolute positions
+    ``q_offset`` on, one rank's slice of a context-parallel prefill."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import geometry
     from repro_torch.kernels.flash_attention.ops import (
@@ -490,23 +519,26 @@ def _flash_case(dev, randn, B, S, Hq, Hkv, D, lens, window=0, causal=True,
     k, v = randn((B, Sk, Hkv, D)), randn((B, Sk, Hkv, D))
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device=dev)
-    kw = dict(window=window, kv_valid=kv, causal=causal)
+    kw = dict(window=window, kv_valid=kv, causal=causal, q_offset=q_offset)
     got = flash_attention_op(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     case = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} kv_valid={lens}"
             + (f" window={window}" if window else "")
-            + ("" if causal else f" non-causal Sk={Sk}"))
+            + ("" if causal else f" non-causal Sk={Sk}")
+            + ("" if q_offset is None
+               else f" context-parallel Sk={Sk} q_offset={q_offset}"))
     err = check("flash_attention", got, want, case)
     work = flash_attention_work(B, S, Hq, Hkv, D, Sk=Sk, causal=causal,
-                                window=window, lengths=lens,
-                                kv_valid=lens is not None)
+                                window=window, q_offset=q_offset,
+                                lengths=lens, kv_valid=lens is not None)
     lens = [Sk] * B if lens is None else lens
+    off = Sk - S if q_offset is None else q_offset
     pos, kpos = torch.arange(S, device=dev), torch.arange(Sk, device=dev)
     mask = torch.ones((S, Sk), dtype=torch.bool, device=dev)
     if causal:
-        mask = kpos[None, :] <= pos[:, None] + (Sk - S)
+        mask = kpos[None, :] <= pos[:, None] + off
     if window:
-        mask = mask & (kpos[None, :] > pos[:, None] + (Sk - S) - window)
+        mask = mask & (kpos[None, :] > pos[:, None] + off - window)
     mask = (mask[None] & (kpos[None, None, :] < torch.tensor(
         lens, device=dev)[:, None, None]))[:, None]
     geo = geometry(B, S, Hq, Hkv, D)
@@ -608,6 +640,11 @@ FAMILY_CASES = {
 RMSNORM_EDGE_CASES = [(8, 1001, False), (37, 1001, True),
                       (8, 960, False, 1), (2048, 960, True, 1)]
 
+
+# phase 16's context-parallel prefill: one rank's 512 query rows of a
+# 2048-token prompt at each rank's offset (smollm's 15 / 5 heads of 64)
+CP_CASES = [dict(B=2, S=512, Hq=15, Hkv=5, D=64, lens=None, Sk=2048,
+                 q_offset=off) for off in (0, 512, 1024, 1536)]
 
 # the launch cells' new lengths (phase 14), held against the plain versions
 # before anything is timed at them: decode at smollm's decode_32k (Smax
@@ -725,6 +762,8 @@ def kernel_cases(dev):
                                 for c in LONG_CASES["decode_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, **c)
                                for c in LONG_CASES["flash_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, **c)
+                               for c in CP_CASES]
     return out
 
 
@@ -1525,6 +1564,78 @@ def run_quickstart(dev):
                 decode_steps=srv.decode_steps)
 
 
+def _recording_route(route, calls):
+    """``moe._route`` that appends each call's output, the gap between its
+    rows' k-th and (k+1)-th router probabilities, its input and each row's
+    largest sum_i |x_i w_ie| to ``calls``."""
+    import torch
+
+    def recording_route(x2d, router, k):
+        out = route(x2d, router, k)
+        srt = torch.softmax(x2d.float() @ router, -1).sort(
+            -1, descending=True).values
+        scale = (x2d.float().abs() @ router.abs()).amax(-1)
+        calls.append((out, (srt[:, k - 1] - srt[:, k]).clone(),
+                      x2d.clone(), scale))
+        return out
+    return recording_route
+
+
+def _steered_route(route, calls, rerouted, p_errs, what, free=None):
+    """``moe._route`` held to the recorded reference ``calls`` (in call
+    order): on the reference's own input the same expert sets (near-ties
+    aside) and weights within ``ROUTER_P_TOL``; on its own input a row may
+    pick another expert set only at a router near-tie (``ROUTER_NEAR``),
+    and then takes the reference's choices and weights, so that a near-tie
+    routed otherwise does not hide the rest of the comparison. ``free()``
+    (a set of row indices) names rows that are not compared and take the
+    reference's routing outright (rows whose input has parted from the
+    reference's). Appends (call, rows rerouted, widest gap) to
+    ``rerouted`` and the weights' error to ``p_errs``."""
+    import torch
+
+    def differing(e, ref_e, gap, where, skip):
+        """Rows whose expert set differs from the reference's; each not in
+        ``skip`` must sit at a router near-tie."""
+        differs = (e.sort(-1).values.to(ref_e.device)
+                   != ref_e.sort(-1).values).any(-1)
+        held = differs & ~skip
+        worst = float(gap[held].max()) if held.any() else 0.0
+        if worst > ROUTER_NEAR:
+            raise AssertionError(
+                f"{what} routing, {where}: {int(held.sum())} token(s) routed "
+                f"otherwise where the reference's k-th and (k+1)-th router "
+                f"probabilities are {worst} apart > {ROUTER_NEAR}")
+        return differs, worst
+
+    def steered_route(x2d, router, k):
+        j = len(rerouted)
+        (ref_p, ref_e, _), gap, ref_x, scale = calls[j]
+        skip = torch.zeros(ref_e.shape[0], dtype=torch.bool,
+                           device=ref_e.device)
+        if free is not None:
+            skip[sorted(free())] = True
+        same_p, same_e, _ = route(ref_x.to(x2d.device), router, k)
+        differs, _ = differing(same_e, ref_e, gap,
+                               f"router call {j} on the reference's input",
+                               torch.zeros_like(skip))
+        err = (same_p.to(ref_p.device) - ref_p).abs().amax(-1) / scale
+        p_errs.append(float(err[~differs].max()) if (~differs).any()
+                      else 0.0)
+        if p_errs[-1] > ROUTER_P_TOL:
+            raise AssertionError(
+                f"{what} router weights on the same input, router call "
+                f"{j}: max |diff| / sum |x w| = {p_errs[-1]} > {ROUTER_P_TOL}")
+        own_p, own_e, aux = route(x2d, router, k)
+        differs, worst = differing(own_e, ref_e, gap, f"router call {j}",
+                                   skip)
+        rerouted.append((j, int((differs & ~skip).sum()), worst))
+        d = (differs | skip).to(x2d.device)[:, None]
+        return (torch.where(d, ref_p.to(x2d.device), own_p),
+                torch.where(d, ref_e.to(x2d.device), own_e), aux)
+    return steered_route
+
+
 def cpu_parity(cfg, params, dev, *, state=None, exact=0, tol_key=None,
                anchor=False, lens=(64, 37), steps=8, extra=None,
                routing=False):
@@ -1579,52 +1690,9 @@ def cpu_parity(cfg, params, dev, *, state=None, exact=0, tol_key=None,
            if "prefix_embeddings" in more else 0)
     results, states = [None] * len(runs), [None] * len(runs)
     route, cpu_calls, rerouted, p_errs = moe_lib._route, [], [], []
-
-    def recording_route(x2d, router, k):
-        """The CPU's router call, recorded with its input, its k-th gaps and
-        each row's largest sum_i |x_i w_ie|."""
-        out = route(x2d, router, k)
-        srt = torch.softmax(x2d.float() @ router, -1).sort(
-            -1, descending=True).values
-        scale = (x2d.float().abs() @ router.abs()).amax(-1)
-        cpu_calls.append((out, (srt[:, k - 1] - srt[:, k]).clone(),
-                          x2d.clone(), scale))
-        return out
-
-    def differing(e, cpu_e, gap, what):
-        """Rows whose expert set differs from the CPU's; each must sit at a
-        router near-tie."""
-        differs = (e.sort(-1).values.cpu() != cpu_e.sort(-1).values).any(-1)
-        worst = float(gap[differs].max()) if differs.any() else 0.0
-        if worst > ROUTER_NEAR:
-            raise AssertionError(
-                f"card vs CPU routing, {what}: {int(differs.sum())} "
-                f"token(s) routed otherwise where the CPU's k-th and "
-                f"(k+1)-th router probabilities are {worst} apart > "
-                f"{ROUTER_NEAR}")
-        return differs, worst
-
-    def steered_route(x2d, router, k):
-        """The card's router call: its own output, with the CPU's choices
-        and weights on the rows it routes otherwise at a near-tie."""
-        j = len(rerouted)
-        (cpu_p, cpu_e, _), gap, cpu_x, scale = cpu_calls[j]
-        same_p, same_e, _ = route(cpu_x.to(x2d.device), router, k)
-        differs, _ = differing(same_e, cpu_e, gap,
-                               f"router call {j} on the CPU's input")
-        err = (same_p.cpu() - cpu_p).abs().amax(-1) / scale
-        p_errs.append(float(err[~differs].max()) if (~differs).any()
-                      else 0.0)
-        if p_errs[-1] > ROUTER_P_TOL:
-            raise AssertionError(
-                f"card vs CPU router weights on the same input, router call "
-                f"{j}: max |diff| / sum |x w| = {p_errs[-1]} > {ROUTER_P_TOL}")
-        own_p, own_e, aux = route(x2d, router, k)
-        differs, worst = differing(own_e, cpu_e, gap, f"router call {j}")
-        rerouted.append((j, int(differs.sum()), worst))
-        d = differs.to(x2d.device)[:, None]
-        return (torch.where(d, cpu_p.to(x2d.device), own_p),
-                torch.where(d, cpu_e.to(x2d.device), own_e), aux)
+    recording_route = _recording_route(route, cpu_calls)
+    steered_route = _steered_route(route, cpu_calls, rerouted, p_errs,
+                                   "card vs CPU")
 
     for i in ((1, 0, *range(2, len(runs))) if routing
               else range(len(runs))):
@@ -2057,13 +2125,38 @@ def _bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 2.0 ** -133
 
 
+def _wrap_logits(srv, per_req, calls):
+    """Make ``srv`` file each sampled logits row (appended to ``calls`` by
+    the wrapped ``sample``) under its request: a prefill's row i belongs
+    to the i-th admitted slot in slot order, a decode step's row s to the
+    request in slot s."""
+    admit, decode = srv._admit, srv._decode_once
+
+    def rec_admit(params):
+        before, n = set(srv._active), len(calls)
+        admit(params)
+        if len(calls) > n:
+            new = sorted(s for s in srv._active if s not in before)
+            for i, s in enumerate(new):
+                per_req.setdefault(srv._active[s].request_id,
+                                   []).append(calls[-1][i])
+
+    def rec_decode(params):
+        slots = {s: r.request_id for s, r in srv._active.items()}
+        n = len(calls)
+        decode(params)
+        if len(calls) > n:
+            for s, rid in slots.items():
+                per_req[rid].append(calls[-1][s])
+
+    srv._admit, srv._decode_once = rec_admit, rec_decode
+
+
 def _record_logits(casc):
     """Per tier, the logits row each request's tokens were sampled from (a
     run whose step is eager: on the CPU, or on the card under ``_eager``):
     wraps the engine's ``sample`` and each tier's ``_admit`` and
-    ``_decode_once``. A prefill's row i belongs to the i-th admitted slot
-    in slot order, a decode step's row s to the request in slot s. Returns
-    ``(rows, undo)``."""
+    ``_decode_once`` (``_wrap_logits``). Returns ``(rows, undo)``."""
     from repro_torch.serving import engine as E
 
     calls, rows = [], {"draft": {}, "verify": {}}
@@ -2073,31 +2166,9 @@ def _record_logits(casc):
         calls.append(logits.float().cpu().numpy())
         return real_sample(logits, gen, **kw)
 
-    def wrap(srv, per_req):
-        admit, decode = srv._admit, srv._decode_once
-
-        def rec_admit(params):
-            before, n = set(srv._active), len(calls)
-            admit(params)
-            if len(calls) > n:
-                new = sorted(s for s in srv._active if s not in before)
-                for i, s in enumerate(new):
-                    per_req.setdefault(srv._active[s].request_id,
-                                       []).append(calls[-1][i])
-
-        def rec_decode(params):
-            slots = {s: r.request_id for s, r in srv._active.items()}
-            n = len(calls)
-            decode(params)
-            if len(calls) > n:
-                for s, rid in slots.items():
-                    per_req[rid].append(calls[-1][s])
-
-        srv._admit, srv._decode_once = rec_admit, rec_decode
-
     E.sample = sample
     for tier in rows:
-        wrap(getattr(casc, tier), rows[tier])
+        _wrap_logits(getattr(casc, tier), rows[tier], calls)
 
     def undo():
         E.sample = real_sample
@@ -3646,6 +3717,461 @@ def examples_phase(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded paths on torch.distributed, on the one card
+# ---------------------------------------------------------------------------
+
+# ep over (1, 4), ranks sharing the card, against the one-device card run
+# of the same weights, the ranks routed as the one device's recorded
+# router calls route (phase 12's rule: another expert set only at a
+# near-tie, which then takes the one device's choice; a near-tie taken
+# otherwise moves a whole row, 0.0815 of the largest |logit| unsteered):
+# logits within 3 bf16 roundings of the largest |logit|, the ranks'
+# partial expert sums meeting in bf16 in another order (steered prefill
+# measured 0.0084 of the largest, 2.2 roundings). A greedy stream may part
+# from the one device's only at a step where the ranks' logits row lies
+# within this of the one device's (measured 0.0068-0.0079) and the one
+# device's two tokens lie within twice that row's difference. The same
+# prefill with the expert sum broken (measured 0.52) must miss the limit
+# FAULT_MARGIN times over. The context-parallel prefill is held bit for
+# bit (the kernel's tiles keep each row's key order, and the ranks' GEMMs
+# gave the one device's bits)
+SHARDED_LOGIT_TOL = 3 * 2.0 ** -8
+FAULT_MARGIN = 10
+# the pod-compressed step's gradients against the one-device step's, in
+# quanta of each leaf (max |g| over the pods / 127 / npods): the int8
+# rounding, and the ranks' own bf16 gradient roundings
+POD_QUANTA = 3.0
+SHARD_RANKS = 4
+SHARD_PROMPTS = (32, 64, 128, 32, 64, 128, 32, 64)   # dbrx's requests
+SHARD_NEW = 16
+CP_PROMPT = 2048
+POD_LAYERS, POD_BATCH, POD_SEQ, POD_STEPS = 8, 8, 256, 2
+
+
+def _sim_server(model, params, prompts, *, eager=False, rows=None,
+                setup=None):
+    """A greedy ``LMServer`` (8 slots, max_len 512) over ``prompts`` in
+    calibrated simulation, so that admission decides the same on every run
+    and every rank: -> (streams, engine report, server). ``eager``: the
+    fused step runs eagerly; ``rows``: filled with each request's sampled
+    logits rows (an eager run); ``setup(server)`` runs before it serves."""
+    from repro_torch.core.metrics import VirtualClock
+    from repro_torch.serving import engine as E
+
+    srv = E.LMServer(model, device=model.device, slots=8, max_len=512,
+                     temperature=0.0, slo=5.0, clock=VirtualClock(),
+                     service_model=lambda kind, b, t: 1e-3 * b + 1e-5 * t)
+    if eager:
+        _eager(srv)
+    real, calls = E.sample, []
+    if rows is not None:
+        def sample(logits, gen, **kw):
+            calls.append(logits.float().cpu().numpy())
+            return real(logits, gen, **kw)
+        E.sample = sample
+        _wrap_logits(srv, rows, calls)
+    if setup is not None:
+        setup(srv)
+    try:
+        rids = [srv.submit(p, max_new_tokens=SHARD_NEW) for p in prompts]
+        srv.run(params)
+    finally:
+        E.sample = real
+    return ({r: srv.completed[r].tokens for r in rids}, srv.engine_report(),
+            srv)
+
+
+def _nccl_one_rank(cfg, params, prompts):
+    """Phase 16a: an NCCL world of one rank, the (1, 1) mesh, the model's
+    sharded code path through ``LMServer`` with its decode step captured
+    (the collectives inside the graph)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import serve_rules
+    from repro_torch.launch.mesh import init_world, make_local_mesh
+    from repro_torch.models.api import build_model
+
+    with tempfile.TemporaryDirectory() as d:
+        init_world(0, 1, Path(d, "rendezvous").as_uri(), device="cuda")
+        try:
+            mesh = make_local_mesh(1, 1, device="cuda")
+            if mesh.world.backend != "nccl":
+                raise AssertionError(f"one rank a card: {mesh.world.backend}")
+            model = build_model(cfg, mesh=mesh, rules=serve_rules(False))
+            _zero_counts()
+            streams, report, srv = _sim_server(model, params, prompts)
+            counts = _counts()
+            return dict(streams=streams, report=report, counts=counts,
+                        replays=srv.graph_replays,
+                        record=mesh.world.record.summary())
+        finally:
+            dist.destroy_process_group()
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _parting(want, got):
+    """``{request: first step where the streams differ}``."""
+    out = {}
+    for rid, w in want.items():
+        k = next((i for i, (x, y) in enumerate(zip(w, got[rid])) if x != y),
+                 None)
+        if k is not None:
+            out[rid] = k
+    return out
+
+
+def _sharded_rank(rank, p):
+    """Phases 16b-d on one of ``SHARD_RANKS`` gloo ranks sharing the card;
+    the one-device weights and results arrive as CUDA handles in ``p``."""
+    import torch
+    from repro_torch.bridge import params_for_rank
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.training.grad_compress import (
+        _accumulate, _pod_local_mean, loss_and_grads)
+    from repro_torch.tree import flatten_with_paths
+
+    from repro_torch.models import moe as moe_lib
+
+    dev = torch.device(p["device"])
+    out = {}
+    route = moe_lib._route
+    mesh = make_local_mesh(1, SHARD_RANKS, device=dev, share=True)
+    rec = mesh.world.record
+    with torch.no_grad():
+        # b: ep, 4 experts a rank
+        model = build_model(p["dbrx_cfg"], mesh=mesh,
+                            rules=sh.serve_rules(False))
+        local = params_for_rank(p["dbrx_params"], model)
+        out["experts"] = int(local["layers"]["moe"]["wi"].shape[1])
+        # routed as the one device routed, near-ties aside (phase 12's rule)
+        rerouted, p_errs = [], []
+        moe_lib._route = _steered_route(route, p["route_prefill"], rerouted,
+                                        p_errs, "16b ranks vs one device")
+        try:
+            out["ep_logits_err"] = _rel(model.prefill(
+                local, {"tokens": p["toks"]})[0], p["ref_logits"])
+        finally:
+            moe_lib._route = route
+        # the negative control: the expert sum broken (each rank keeps its
+        # own experts' part, the psum left out) must miss the limit widely
+        psum, sh.psum = sh.psum, lambda x, axes, mesh=None: x
+        try:
+            out["ep_fault_err"] = _rel(model.prefill(
+                local, {"tokens": p["toks"]})[0], p["ref_logits"])
+        finally:
+            sh.psum = psum
+        # the server, routed as the one device's eager server routed; the
+        # decode rows of idle slots and of streams that have parted from
+        # the one device's are not compared and take its routing outright
+        free = set()
+
+        def track(srv):
+            decode = srv._decode_once
+
+            def tracked(params):
+                free.update(range(srv.slots))
+                free.difference_update(
+                    s for s, r in srv._active.items() if r.tokens
+                    == p["streams"][r.request_id][:len(r.tokens)])
+                try:
+                    decode(params)
+                finally:
+                    free.clear()
+            srv._decode_once = tracked
+
+        n_prefill = len(rerouted)
+        calls = p["route_prefill"] + p["route_server"]
+        moe_lib._route = _steered_route(route, calls, rerouted, p_errs,
+                                        "16b ranks vs one device",
+                                        free=lambda: free)
+        _zero_counts()
+        rec.clear()
+        rows = {}
+        try:
+            out["ep_streams"], out["ep_report"], _ = _sim_server(
+                model, local, p["prompts"], rows=rows, setup=track)
+        finally:
+            moe_lib._route = route
+        out["ep_counts"] = _counts()
+        if len(rerouted) != len(calls):
+            raise AssertionError(f"16b: {len(rerouted) - n_prefill} router "
+                                 f"calls against the one device's "
+                                 f"{len(p['route_server'])}")
+        out["ep_rerouted"] = [r for r in rerouted if r[1]]
+        out["ep_router_p_err"] = max(p_errs)
+        out["ep_record"] = rec.summary()
+        out["ep_part_rows"] = {rid: rows[rid][k] for rid, k in _parting(
+            p["streams"], out["ep_streams"]).items()}
+        del rows
+        # eager ms a step with every slot busy, and the bytes it moves
+        srv = _sim_server(model, local, [])[2]
+        for q in p["prompts"]:
+            srv.submit(q, max_new_tokens=64)
+        while srv._queue:                  # admit every request
+            srv.step(local)
+        torch.cuda.synchronize()
+        rec.clear()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            srv._decode_once(local)
+        torch.cuda.synchronize()
+        out["ep_step_ms"] = (time.perf_counter() - t0) / 8 * 1e3
+        out["ep_step_bytes"] = sum(e["bytes"] for e in rec.summary()) / 8
+        out["ep_step_staged"] = rec.staged_bytes / 8
+        del model, local, srv
+        torch.cuda.empty_cache()
+        # c: context-parallel prefill, S / 4 rows a rank
+        model = build_model(p["sm_cfg"], mesh=mesh,
+                            rules=dict(sh.serve_rules(False), seq="model"))
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(p["sm_params"], {"tokens": p["prompt"]})
+        torch.cuda.synchronize()
+        out["cp_ms"] = (time.perf_counter() - t0) * 1e3
+        out["cp_counts"] = _counts()
+        out["cp_logits_err"] = _rel(logits, p["sm_logits"])
+        out["cp_cache_err"] = max(_rel(cache[k], p["sm_cache"][k])
+                                  for k in ("k", "v"))
+        out["cp_equal"] = bool(torch.equal(logits, p["sm_logits"])) and all(
+            torch.equal(cache[k], p["sm_cache"][k]) for k in ("k", "v"))
+        del model, logits, cache
+        torch.cuda.empty_cache()
+    # d: the pod-compressed step, (pod 2, data 2)
+    mesh3 = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev,
+                      share=True)
+    rec3 = mesh3.world.record
+    bundle = build_train_step(p["tr_cfg"], ShapeSpec(
+        "pod", POD_SEQ, POD_BATCH, "train"), mesh3, num_microbatches=1)
+    m = bundle.model
+    specs = m.extras["param_specs"]
+    params = p["tr_params"]
+    batch = sh.rank_rows(p["batch"], mesh3, bundle.rules["batch"])
+    _zero_counts()
+    rec3.clear()
+    _, grads = loss_and_grads(m.loss_fn, params, batch, mesh=mesh3,
+                              param_specs=specs)
+    out["pod_record"] = rec3.summary()
+    pod = _pod_local_mean(_accumulate(m.loss_fn, params, batch, 1)[1],
+                          specs, mesh3)
+    amax = sh.pmax(torch.stack([g.abs().max() for _, g in
+                                flatten_with_paths(pod)]), "pod", mesh=mesh3)
+    quanta = 0.0
+    for i, (path, g) in enumerate(flatten_with_paths(grads)):
+        quantum = float(amax[i].clamp_min(1e-20)) / 127.0 / 2
+        quanta = max(quanta, float((g - p["one_grads"][path]).abs().max())
+                     / quantum)
+    out["pod_quanta"] = quanta
+    opt = bundle.make_args(0)[1]
+    out["pod_step_ms"], out["pod_loss"] = [], []
+    for _ in range(POD_STEPS):
+        rec3.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = bundle.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        out["pod_step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["pod_loss"].append(float(metrics["loss"]))
+    out["pod_step_record"] = rec3.summary()
+    out["pod_step_staged"] = rec3.staged_bytes
+    out["train_counts"] = _counts()
+    return out
+
+
+def sharded_phases(dev):
+    """Phase 16: 16a an NCCL world of one rank (the production transport)
+    serving 4-layer dbrx-132b through the sharded code path, its decode
+    graph captured with the collectives inside, streams equal to the
+    unsharded server's bit for bit; then ``SHARD_RANKS`` gloo ranks sharing
+    the card (spawned once, after the kernels are built, the weights handed
+    over as CUDA handles): 16b dbrx ``ep`` over (1, 4), 16c smollm-360m's
+    context-parallel prefill of a 2048-token prompt, 16d the pod-compressed
+    training step of smollm-360m on (pod 2, data 2). The ranks' collectives
+    copy through host memory: their times and bytes are those of ranks on
+    one card, not of four cards. -> the kernels' launches on these paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.api import build_model
+    from repro_torch.training.grad_compress import loss_and_grads
+    from repro_torch.tree import flatten_with_paths
+
+    t0 = time.perf_counter()
+    full = ARCHITECTURES["dbrx-132b"]
+    cfg = dataclasses.replace(full, num_layers=4)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SHARD_PROMPTS]
+    with torch.no_grad():
+        one = build_model(cfg, device=dev)
+        params = one.init(torch.Generator(device=dev).manual_seed(0))
+        streams, report, srv = _sim_server(one, params, prompts)
+        if not srv.graph_replays:
+            raise AssertionError("16a: the unsharded step never replayed")
+        a = _nccl_one_rank(cfg, params, prompts)
+        if a["streams"] != streams:
+            raise AssertionError("16a: the NCCL rank's streams differ from "
+                                 "the unsharded server's")
+        if not (a["report"]["decode"]["graph"] and a["replays"]):
+            raise AssertionError("16a: the sharded decode step was not "
+                                 "captured")
+        rep = dict(a["report"])
+        if rep.pop("mesh")["backend"] != "nccl" or rep != report:
+            raise AssertionError(f"16a: engine reports differ: {rep} vs "
+                                 f"{report}")
+        for k in ("rmsnorm", "decode_attention", "flash_attention"):
+            if not a["counts"][k]:
+                raise AssertionError(f"16a: {k} never launched")
+        log(f"16a dbrx-132b {cfg.num_layers} layers, NCCL world of one rank "
+            f"on mesh (1, 1): {len(streams)} streams equal to the unsharded "
+            f"server's bit for bit; decode graph captured with its "
+            f"collectives, {a['replays']} replays; launches {a['counts']}; "
+            f"collectives issued (eager steps and the capture) "
+            f"{a['record']}")
+        rows, route_server, route_prefill = {}, [], []
+        toks = torch.from_numpy(np.stack([q[:32] for q in prompts])).to(dev)
+        route = moe_lib._route
+        try:
+            moe_lib._route = _recording_route(route, route_server)
+            eager_streams, _, _ = _sim_server(one, params, prompts,
+                                              eager=True, rows=rows)
+            moe_lib._route = _recording_route(route, route_prefill)
+            ref_logits = one.prefill(params, {"tokens": toks})[0]
+        finally:
+            moe_lib._route = route
+        if eager_streams != streams:
+            raise AssertionError("16b: the eager one-device streams differ "
+                                 "from the graphed ones")
+        sm_cfg = ARCHITECTURES["smollm-360m"].padded_config(SHARD_RANKS)
+        sm = build_model(sm_cfg, device=dev)
+        sm_params = sm.init(torch.Generator(device=dev).manual_seed(0))
+        prompt = torch.from_numpy(rng.integers(
+            0, sm_cfg.vocab_size, (1, CP_PROMPT)).astype(np.int32)).to(dev)
+        sm_logits, sm_cache = sm.prefill(sm_params, {"tokens": prompt})
+    tr_cfg = dataclasses.replace(ARCHITECTURES["smollm-360m"],
+                                 num_layers=POD_LAYERS)
+    tr = build_model(tr_cfg, device=dev)
+    tr_params = tr.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.from_numpy(rng.integers(
+        0, tr_cfg.vocab_size, (POD_BATCH, POD_SEQ)).astype(np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    _, one_grads = loss_and_grads(tr.loss_fn, tr_params, batch)
+    log(f"16 one-device references: {time.perf_counter() - t0:.1f} s")
+    payload = dict(device="cuda", dbrx_cfg=cfg, dbrx_params=params,
+                   toks=toks, streams=streams, route_prefill=route_prefill,
+                   route_server=route_server,
+                   ref_logits=ref_logits, prompts=prompts, sm_cfg=sm_cfg,
+                   sm_params=sm_params, prompt=prompt, sm_logits=sm_logits,
+                   sm_cache={k: sm_cache[k] for k in ("k", "v")},
+                   tr_cfg=tr_cfg, tr_params=tr_params, batch=batch,
+                   one_grads=dict(flatten_with_paths(one_grads)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(_sharded_rank, SHARD_RANKS, payload, device="cuda",
+                      share=True, timeout=600)
+    log(f"16b-d {SHARD_RANKS} gloo ranks sharing the card: "
+        f"{time.perf_counter() - t1:.1f} s")
+    del payload
+    counts = dict(a["counts"])
+    for r, out in enumerate(ranks):
+        if out["experts"] != cfg.num_experts // SHARD_RANKS:
+            raise AssertionError(f"16b rank {r}: {out['experts']} experts")
+        if out["ep_streams"] != ranks[0]["ep_streams"]:
+            raise AssertionError(f"16b rank {r}: streams differ from rank 0")
+        if out["ep_logits_err"] > SHARDED_LOGIT_TOL:
+            raise AssertionError(f"16b rank {r}: prefill logits "
+                                 f"{out['ep_logits_err']} of the largest")
+        if out["ep_fault_err"] < FAULT_MARGIN * SHARDED_LOGIT_TOL:
+            raise AssertionError(f"16b rank {r}: a broken expert sum gives "
+                                 f"only {out['ep_fault_err']} of the largest")
+        if not out["cp_equal"]:
+            raise AssertionError(f"16c rank {r}: not bit-equal to the one "
+                                 f"device: logits {out['cp_logits_err']}, "
+                                 f"cache {out['cp_cache_err']} of the "
+                                 f"largest")
+        if out["pod_quanta"] > POD_QUANTA:
+            raise AssertionError(f"16d rank {r}: gradients "
+                                 f"{out['pod_quanta']} quanta off")
+        if any(out["train_counts"].values()):
+            raise AssertionError(f"16d rank {r}: training launched kernels "
+                                 f"{out['train_counts']}")
+        for key, names in (("ep_counts", ("rmsnorm", "decode_attention",
+                                          "flash_attention")),
+                           ("cp_counts", ("rmsnorm", "flash_attention"))):
+            for k in names:
+                if not out[key][k]:
+                    raise AssertionError(f"16 rank {r}: {k} never launched "
+                                         f"({key})")
+            for k, n in out[key].items():
+                counts[k] += n
+        over_pod = {(e["op"], e["dtype"]) for e in out["pod_record"]
+                    if "pod" in e["axes"]}
+        if over_pod != {("all_gather", "int8"), ("pmax", "float32"),
+                        ("psum", "float32")}:
+            raise AssertionError(f"16d rank {r}: over pod {over_pod}")
+    # (request, step, the one device's gap between the two tokens, the
+    # ranks' logits row's difference from it), each / its largest |logit|
+    gaps = []
+    for rid, k in _parting(streams, ranks[0]["ep_streams"]).items():
+        want, got = streams[rid][k], ranks[0]["ep_streams"][rid][k]
+        one_row, rank_row = rows[rid][k], ranks[0]["ep_part_rows"][rid]
+        top = abs(one_row).max()
+        gaps.append((rid, k, float((one_row[want] - one_row[got]) / top),
+                     float(abs(rank_row - one_row).max() / top)))
+        if gaps[-1][3] > SHARDED_LOGIT_TOL or gaps[-1][2] > 2 * gaps[-1][3]:
+            raise AssertionError(f"16b request {rid} parts at step {k}, not "
+                                 f"at a near-tie: {gaps[-1]}")
+    parted = len(gaps)
+    r0 = ranks[0]
+    log(f"16b dbrx-132b {cfg.num_layers} layers, ep over (1, "
+        f"{SHARD_RANKS}), {r0['experts']} experts a rank: prefill logits "
+        f"within {max(o['ep_logits_err'] for o in ranks)} of the largest "
+        f"(limit {SHARDED_LOGIT_TOL}; with the expert sum broken "
+        f"{min(o['ep_fault_err'] for o in ranks)}, at least {FAULT_MARGIN} "
+        f"times the limit); routed as the one device, but at near-ties "
+        f"(call, rows, gap) {r0['ep_rerouted']}, router weights on its "
+        f"input within {max(o['ep_router_p_err'] for o in ranks)} (limit "
+        f"{ROUTER_P_TOL}); streams equal on every rank, "
+        f"{len(streams) - parted} of {len(streams)} equal to one device's "
+        f"(the rest part where the ranks' logits row lies within the limit "
+        f"of the one device's and its two tokens within twice that: "
+        f"(request, step, gap, row difference) / largest |logit| {gaps}); "
+        f"launches a rank {r0['ep_counts']}; "
+        f"eager ms a step with 8 slots busy {r0['ep_step_ms']:.3f} "
+        f"(host-staged gloo collectives on one card, not a multi-card "
+        f"figure), collective payload {r0['ep_step_bytes']:.0f} B and "
+        f"staged through host memory {r0['ep_step_staged']:.0f} B a step "
+        f"a rank; collectives {r0['ep_record']}")
+    log(f"16c smollm-360m ({sm_cfg.num_heads} / {sm_cfg.num_kv_heads} heads "
+        f"at padded({SHARD_RANKS})), context-parallel prefill of "
+        f"{CP_PROMPT} tokens, {CP_PROMPT // SHARD_RANKS} a rank: logits "
+        f"and cache bit-equal to the one-device prefill on every rank; "
+        f"{r0['cp_ms']:.1f} ms on rank 0 (ranks sharing the card); "
+        f"launches a rank {r0['cp_counts']}")
+    log(f"16d smollm-360m cut to {POD_LAYERS} of 32 layers (to keep the "
+        f"phase near a minute) on (pod 2, data 2), batch {POD_BATCH} x "
+        f"{POD_SEQ}: gradients within {max(o['pod_quanta'] for o in ranks)} "
+        f"quanta of the one-device step's (limit {POD_QUANTA}); "
+        f"{POD_STEPS} steps {r0['pod_step_ms']} ms, loss {r0['pod_loss']}; "
+        f"collectives a step {r0['pod_step_record']} (staged "
+        f"{r0['pod_step_staged']} B)")
+    log(f"sharded phases: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     # phase 13 runs under deterministic algorithms, which need a fixed
     # cuBLAS workspace; on an H100 this is PyTorch's default size (32 MiB),
@@ -3671,6 +4197,7 @@ def main() -> int:
             training_phases(dev)
             by_path = launch_phases(dev, proc, out_dir)
             by_path["examples"] = examples_phase(dev, smi)
+            by_path["sharded"] = sharded_phases(dev)
         finally:
             if proc.poll() is None:
                 proc.kill()

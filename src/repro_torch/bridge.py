@@ -43,3 +43,31 @@ def params_from_numpy(tree: Any, device="cuda",
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree), device, dtype)
 
+
+
+
+def params_for_rank(tree: Any, model, mesh=None, dtype=None) -> Any:
+    """This rank's shards of a one-device params tree for ``model`` built
+    on ``mesh`` (default: the model's). Each leaf the model places by a
+    logical axis (``extras["param_specs"]``: the expert dim over
+    ``model``; ``expert_ffn`` over ``data`` in ``ep2d``; the ``fsdp``
+    storage dim in gather mode) is cut to this rank's block, the rest
+    arrive whole. Numpy leaves (the reference's params) are cut before
+    they leave numpy and arrive on the model's device, bf16 bit-exact as
+    in :func:`params_from_numpy`; tensor leaves stay where they are, their
+    blocks views, so ranks that share a card and were handed one copy of
+    the weights (``launch.mesh.run_ranks`` passes CUDA tensors as handles
+    to the same memory) add no copy of their own."""
+    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.tree import flatten_with_paths, unflatten_like
+
+    mesh = mesh if mesh is not None else model.extras.get("mesh")
+    specs = model.extras.get("param_specs", {})
+    flat = []
+    for path, leaf in flatten_with_paths(tree):
+        if path in specs:
+            leaf = local_slice(leaf, specs[path], mesh)
+        if not isinstance(leaf, torch.Tensor):
+            leaf = tensor_from_numpy(np.asarray(leaf), model.device, dtype)
+        flat.append(leaf)
+    return unflatten_like(tree, flat)

@@ -108,6 +108,16 @@ class ModelConfig:
             head_dim=hd,
         )
 
+    def padded_config(self, tp: int) -> "ModelConfig":
+        """This config with heads and vocab as ``padded(tp)`` gives them:
+        the one-device model equal to the one built on a mesh with
+        ``model = tp``, which takes the same params."""
+        pd = self.padded(tp)
+        return dataclasses.replace(self, num_heads=pd.num_q_heads,
+                                   num_kv_heads=pd.num_kv_heads,
+                                   vocab_size=pd.vocab_size,
+                                   head_dim=pd.head_dim)
+
     # ----- analytic parameter counts (logical dims) -----
     def param_count(self, padded_tp: int = 1) -> int:
         """Total parameter count. With padded_tp>1, counts the padded tensors

@@ -1,12 +1,30 @@
-"""Logical-axis sharding rules (port of ``repro.distributed.sharding``).
+"""Logical-axis sharding rules and the collectives (port of
+``repro.distributed.sharding``).
 
 Model code names a tensor's dims with *logical* axes; a rules table maps
-them to mesh axes (MaxText-style). The port runs on one device, which has
-nothing to place: ``shard`` returns its input, and ``ShardingContext.
-sharding`` returns the :class:`PartitionSpec` the reference would place by.
-The rule tables, the spec (a mesh axis used at most once, trailing
-``None``s trimmed) and the context's thread-local stay the reference's,
-so a sharded port can read them as they are.
+them to mesh axes (MaxText-style). ``shard`` returns its input: the port
+places nothing by annotation. The rule tables, the spec (a mesh axis used
+at most once, trailing ``None``s trimmed) and the context's thread-local
+stay the reference's.
+
+Where the reference writes its collectives inside ``shard_map`` bodies
+(``lax.all_gather``, ``psum``, ``psum_scatter``, ``pmean``,
+``axis_index``), the port runs SPMD programs on ``torch.distributed``:
+each rank calls the functions below on its own tensors, by axis name, on
+the process groups of a :class:`repro_torch.launch.mesh.Mesh` that spans a
+world. On a mesh without a world every axis has size 1 and each
+collective returns its input. :func:`local_slice` cuts a rank's block out
+of a global tensor by a :class:`PartitionSpec`, and :func:`gather_global`
+puts one back together.
+
+Gradients pass through every collective as its adjoint: ``all_gather`` ↔
+``psum_scatter``, and ``psum`` (and ``pmean``) ↔ itself. So each rank
+back-propagates its own loss, and a parameter that several ranks hold
+has its gradient summed over them (``training.grad_compress``).
+
+Every call is counted on the mesh's ``world.record`` (op, axes, dtype:
+calls and bytes), with the bytes copied through host memory where gloo
+carries a card's tensors.
 
 Rules used in production (DESIGN.md §6):
     batch   -> ('pod', 'data')   [or ('data',) single-pod]
@@ -16,7 +34,7 @@ Rules used in production (DESIGN.md §6):
 
 Not carried over: ``compat_shard_map``, ``compat_axis_size`` and
 ``_shard_map_check_kwarg``, shims between JAX versions' ``shard_map`` and
-``axis_size`` APIs that only a multi-device program calls.
+``axis_size`` APIs.
 """
 
 from __future__ import annotations
@@ -24,6 +42,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -164,3 +184,266 @@ def params_shardings(axes_tree, ctx: ShardingContext):
             return type(axes_tree)(*out)
         return type(axes_tree)(out)
     return axes_tree
+
+
+# ---------------------------------------------------------------------------
+# collectives by axis name (the reference's lax collectives inside
+# shard_map bodies)
+# ---------------------------------------------------------------------------
+
+def _mesh_of(mesh):
+    if mesh is not None:
+        return mesh
+    ctx = current()
+    if ctx is None:
+        raise ValueError("a collective needs a mesh: pass mesh= or enter "
+                         "sharding_context")
+    return ctx.mesh
+
+
+def axis_size(axes, *, mesh=None) -> int:
+    """The number of ranks along ``axes`` (a name or a tuple of names)."""
+    return _mesh_of(mesh).size(axes)
+
+
+def axis_index(axes, *, mesh=None) -> int:
+    """This rank's index along ``axes``: row-major over them in the mesh's
+    order, as ``lax.axis_index`` numbers a tuple of axes."""
+    return _mesh_of(mesh).index(axes)
+
+
+def _group(mesh, axes):
+    """(names, world) of a collective over ``axes``; (names, None) where
+    every one of them has size 1 and there is no world to ask."""
+    names = mesh.axes(axes)
+    if mesh.world is None:
+        if mesh.size(names) != 1:
+            raise ValueError(f"a collective over {names} of {mesh.shape} "
+                             f"needs a mesh over a torch.distributed world "
+                             f"(launch.mesh.make_mesh after init_world)")
+        return names, None
+    return names, mesh.world
+
+
+def _staged(world, t: torch.Tensor) -> torch.Tensor:
+    """The tensor the transport is given: a host copy of card memory under
+    gloo (counted), else ``t``."""
+    if world.staged and t.device.type != "cpu":
+        world.record.staged_bytes += t.numel() * t.element_size()
+        return t.cpu()
+    return t
+
+
+def _back(world, t: torch.Tensor, device) -> torch.Tensor:
+    if t.device != device:
+        world.record.staged_bytes += t.numel() * t.element_size()
+        return t.to(device)
+    return t
+
+
+def _gather_single():
+    """The flat all-gather under its current name (``all_gather_single``
+    from torch 2.13 on, ``all_gather_into_tensor`` before)."""
+    import torch.distributed as dist
+    return getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+
+
+def _scatter_single():
+    import torch.distributed as dist
+    return getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"):
+    import torch.distributed as dist
+
+    names, world = _group(mesh, axes)
+    if world is None:
+        return x
+    world.record.add("psum" if op == "sum" else "pmax", names, x)
+    buf = _staged(world, x.detach().contiguous())
+    if buf.data_ptr() == x.data_ptr():            # reduce into a copy
+        buf = buf.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=world.groups[names])
+    return _back(world, buf, x.device)
+
+
+def _all_gather(x: torch.Tensor, mesh, axes, dim: int):
+    import torch.distributed as dist
+
+    names, world = _group(mesh, axes)
+    if world is None:
+        return x
+    n = mesh.size(names)
+    world.record.add("all_gather", names, x)
+    src = _staged(world, x.detach().movedim(dim, 0).contiguous())
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _gather_single()(out, src, group=world.groups[names])
+    out = _back(world, out, x.device)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def _psum_scatter(x: torch.Tensor, mesh, axes, dim: int):
+    import torch.distributed as dist
+
+    names, world = _group(mesh, axes)
+    if world is None:
+        return x
+    n = mesh.size(names)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
+                         f"not split {n} ways")
+    world.record.add("psum_scatter", names, x)
+    src = _staged(world, x.detach().movedim(dim, 0).contiguous())
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _scatter_single()(out, src, op=dist.ReduceOp.SUM,
+                      group=world.groups[names])
+    out = _back(world, out, x.device)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, *ctx.args), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _psum_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, *ctx.args), None, None
+
+
+def all_gather(x: torch.Tensor, axis, dim: int = 0, *,
+               mesh=None) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the ranks' blocks
+    along ``dim``, in rank order. Its gradient is ``psum_scatter``'s."""
+    return _AllGather.apply(x, _mesh_of(mesh), axis, dim)
+
+
+def psum_scatter(x: torch.Tensor, axis, dim: int = 0, *,
+                 mesh=None) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+    the sum over the ranks, of which each keeps its block along ``dim``.
+    Its gradient is ``all_gather``'s."""
+    return _PsumScatter.apply(x, _mesh_of(mesh), axis, dim)
+
+
+def psum(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
+    """``lax.psum(x, axes)``: the sum over the ranks along ``axes``; its
+    gradient is the psum of the ranks' gradients."""
+    return _Psum.apply(x, _mesh_of(mesh), axes)
+
+
+def pmean(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
+    """``lax.pmean(x, axes)``."""
+    mesh = _mesh_of(mesh)
+    return psum(x, axes, mesh=mesh) / mesh.size(axes)
+
+
+def pmax(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
+    """The elementwise max over the ranks along ``axes`` (no gradient)."""
+    return _all_reduce(x, _mesh_of(mesh), axes, op="max")
+
+
+def broadcast(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
+    """Every rank along ``axes`` gets the first one's ``x`` (in place
+    where the transport reads ``x`` itself; returns the result)."""
+    import torch.distributed as dist
+
+    mesh = _mesh_of(mesh)
+    names, world = _group(mesh, axes)
+    if world is None:
+        return x
+    world.record.add("broadcast", names, x)
+    buf = _staged(world, x.contiguous())
+    dist.broadcast(buf, src=world.members[names][0],
+                   group=world.groups[names])
+    out = _back(world, buf, x.device)
+    if out.data_ptr() != x.data_ptr():
+        x.copy_(out)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# a rank's block of a global tensor
+# ---------------------------------------------------------------------------
+
+def block_slices(shape: Sequence[int], spec: Sequence[AxisVal],
+                 mesh) -> Tuple[slice, ...]:
+    """This rank's block of a global ``shape`` laid out by ``spec``: a dim
+    split over a tuple of axes is split row-major over them, in the spec's
+    order (``P(("data", "model"))``: data-major)."""
+    out = []
+    for i, size in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        n, idx = 1, 0
+        for a in norm_axes(entry):
+            c = mesh.world.coords[a] if mesh.world is not None else 0
+            idx, n = idx * mesh.shape[a] + c, n * mesh.shape[a]
+        if size % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"{n} ways by {tuple(spec)}")
+        b = size // n
+        out.append(slice(idx * b, (idx + 1) * b))
+    return tuple(out)
+
+
+def local_slice(x, spec: Sequence[AxisVal], mesh):
+    """This rank's block of the global ``x`` (a tensor or numpy array; a
+    view where slicing gives one)."""
+    return x[block_slices(x.shape, spec, mesh)]
+
+
+def rank_rows(tree, mesh, batch_rule, num_microbatches: int = 1):
+    """This rank's rows of a tree of global batch arrays (leading dim):
+    a block per pod when the rule has ``pod``, then each microbatch's
+    rows split over the rule's other axes (row-major in its order). The
+    whole tree without a world."""
+    axes = tuple(a for a in norm_axes(batch_rule) if a in mesh.shape)
+    if mesh.world is None or not axes:
+        return tree
+    inner = tuple(a for a in axes if a != "pod")
+
+    def rows(x):
+        if "pod" in axes:
+            x = x[block_slices(x.shape[:1], ("pod",), mesh)]
+        m = x.view(num_microbatches, -1, *x.shape[1:])
+        m = m[(slice(None),) + block_slices(m.shape[1:2], (inner,), mesh)]
+        return m.reshape(-1, *x.shape[1:]).contiguous()
+
+    return {k: rows(v) for k, v in tree.items()}
+
+
+def gather_global(x: torch.Tensor, spec: Sequence[AxisVal],
+                  mesh) -> torch.Tensor:
+    """The global tensor from each rank's block ``x`` (every rank gets it)."""
+    for i, entry in enumerate(spec):
+        for a in reversed(norm_axes(entry)):
+            x = all_gather(x, a, dim=i, mesh=mesh)
+    return x

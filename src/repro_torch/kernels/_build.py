@@ -4,11 +4,19 @@ Each ``csrc/<name>.cu`` exposes a plain C function. At first use every
 source compiles with its own ``nvcc`` (all started at once) into an object
 file, and the objects link into ``build/kernels/repro_torch_kernels-<hash>
 .so`` under the repository root. The hash covers the sources and the flags,
-so an edited source builds anew and an unchanged tree loads what is built."""
+so an edited source builds anew and an unchanged tree loads what is built.
+
+Processes that start together (the ranks of a world on one card, test
+workers) build once: the build holds an exclusive ``fcntl`` lock on
+``<library>.lock`` beside the library, and a process that waited for it
+finds the library built. Objects and the unlinked library carry the
+building process's id until the library is renamed into place. The lock
+dies with its process, so a build cut off leaves nothing to clear."""
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,36 +65,43 @@ def build() -> Path:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
-        tag = f"{out.stem}.{os.getpid()}"
-        jobs = []
-        for name in SOURCES:
-            obj = BUILD_DIR / f"{name}-{tag}.o"
-            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(CSRC / f"{name}.cu"),
-                   "-o", str(obj)]
-            jobs.append((name, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        failed = []
-        for name, _, proc in jobs:
-            log, _ = proc.communicate()
-            ptxas_log[name] = log
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {name}.cu:\n{log}")
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        tmp = BUILD_DIR / f"{tag}.so.tmp"
-        link = subprocess.run(
-            [nvcc, *ARCH, "-shared", "-o", str(tmp),
-             *(str(obj) for _, obj, _ in jobs)],
-            capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
-                               f"{link.stderr}")
-        os.replace(tmp, out)
-        for _, obj, _ in jobs:
-            obj.unlink()
+        with open(out.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():          # else another process built it
+                _compile_and_link(out)
         return out
+
+
+def _compile_and_link(out: Path) -> None:
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{name}-{tag}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", str(CSRC / f"{name}.cu"),
+               "-o", str(obj)]
+        jobs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, _, proc in jobs:
+        log, _ = proc.communicate()
+        ptxas_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp),
+         *(str(obj) for _, obj, _ in jobs)],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                           f"{link.stderr}")
+    os.replace(tmp, out)
+    for _, obj, _ in jobs:
+        obj.unlink()
 
 
 def load() -> ctypes.CDLL:

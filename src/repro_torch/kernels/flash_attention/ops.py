@@ -28,9 +28,12 @@ def flash_attention_work(B: int, S: int, Hq: int, Hkv: int, D: int, *,
     ``q_offset + r``, default ``Sk - S``), within the window, below each
     sample's key length (``lengths``; None, shapes only: all ``Sk``),
     4 D bf16-input operations each (q k and p v). Bytes: q read and the
-    output written for every row; the K and V rows below each length (a
-    sample of length 0 reads V's ``Sk`` rows, as the plain path visits
-    them); the lengths, where ``kv_valid`` is read."""
+    output written for every row; the K and V rows some row attends
+    (below each length; causal: from the first row's window start up to
+    the last row's position, so a rank of a context-parallel prefill
+    reads only the keys its rows see; a sample of length 0 reads V's
+    ``Sk`` rows, as the plain path visits them); the lengths, where
+    ``kv_valid`` is read."""
     Sk = Sk or S
     off = Sk - S if q_offset is None else q_offset
     lengths = [Sk] * B if lengths is None else lengths
@@ -43,7 +46,10 @@ def flash_attention_work(B: int, S: int, Hq: int, Hkv: int, D: int, *,
         lo = np.maximum(0, pos - window + 1) if window else 0
         pairs += times * int(np.maximum(0, np.minimum(pos, n - 1) - lo
                                         + 1).sum())
-    kv_rows = sum(2 * n if n else Sk for n in lengths)
+    first = max(0, off - window + 1) if causal and window else 0
+    last = off + S if causal else Sk      # one past the last key attended
+    kv_rows = sum(2 * max(0, min(n, last) - first) if n else Sk
+                  for n in lengths)
     nbytes = (2 * B * S * Hq * D * itemsize + kv_rows * Hkv * D * itemsize
               + (B * 4 if kv_valid else 0))
     return Work(nbytes, {"bf16": 4 * D * pairs * Hq})

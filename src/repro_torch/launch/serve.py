@@ -2,10 +2,17 @@
 
 Port of ``python -m repro.launch.serve``: stands up the continuous-batching
 ``LMServer`` (AIMD admission, slot decode) for one architecture with seeded
-random weights and drives it with a synthetic request stream. One device:
-``--device`` (default ``cuda``; raises without a card, ``cpu`` runs the
-plain path) takes the place of the reference's elastic mesh, and a seeded
-``torch.Generator`` the place of its PRNG key.
+random weights and drives it with a synthetic request stream. ``--device``
+(default ``cuda``; raises without a card, ``cpu`` runs the plain path)
+picks the device and a seeded ``torch.Generator`` takes the place of the
+reference's PRNG key.
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.serve ...`` each process is one rank on its own card,
+and the server runs on the elastic mesh over the world (``(1, N)`` up to
+16 ranks), as the reference's launcher serves on ``make_elastic_mesh``:
+the moe experts split over ``model``, every rank serving every slot.
+Rank 0 prints. Without a world, one device, as before.
 
 As in the reference, requests carry tokens only: an encoder-decoder
 (seamless-m4t-medium) has no frames to prefill and fails with
@@ -21,6 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.distributed.sharding import serve_rules
+from repro_torch.launch.mesh import init_world_from_env, make_elastic_mesh
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serving.engine import LMServer
 
@@ -42,13 +51,21 @@ def main(argv: Optional[List[str]] = None) -> LMServer:
     if args.reduced:
         cfg = reduced_config(cfg, num_layers=4, d_model=128)
     dev = resolve_device(args.device)
-    model = build_model(cfg, device=dev)
+    mesh, say = None, print
+    if init_world_from_env(dev):
+        mesh = make_elastic_mesh(device=dev)
+        dev = mesh.world.device
+        if mesh.world.rank:
+            say = lambda *a: None                         # noqa: E731
+    model = build_model(cfg, device=dev, mesh=mesh,
+                        rules=serve_rules(False) if mesh else None)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     server = LMServer(model, device=dev, slots=args.slots,
                       max_len=args.max_len, temperature=args.temperature)
     rng = np.random.default_rng(0)
-    print(f"serving {cfg.name} on {dev}; "
-          f"{args.requests} requests x {args.max_new} tokens")
+    say(f"serving {cfg.name} on {dev}"
+        + (f", mesh {mesh.shape}" if mesh else "")
+        + f"; {args.requests} requests x {args.max_new} tokens")
     t0 = time.perf_counter()
     rids = [server.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
                           max_new_tokens=args.max_new)
@@ -56,11 +73,13 @@ def main(argv: Optional[List[str]] = None) -> LMServer:
     server.run(params)
     dt = time.perf_counter() - t0
     toks = sum(len(server.completed[r].tokens) for r in rids)
-    print(f"completed {len(server.completed)}/{args.requests} requests, "
-          f"{toks} tokens in {dt:.2f}s ({toks / dt:.0f} tok/s); "
-          f"AIMD admission batch = {server.admission.max_batch_size}")
+    say(f"completed {len(server.completed)}/{args.requests} requests, "
+        f"{toks} tokens in {dt:.2f}s ({toks / dt:.0f} tok/s); "
+        f"AIMD admission batch = {server.admission.max_batch_size}")
     return server
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -3,13 +3,23 @@ of ``repro.launch.steps``).
 
 For each (arch, shape) cell this builds the function the system would
 run. The reference jits it with explicit in/out shardings; here it is a
-plain callable on the device's tensors (the mesh's first device), and its
-arguments come as meta tensors (``arg_specs``: shapes and dtypes, no
-memory) that the dry run counts on. The rules are computed and recorded
-as the reference computes them; on one device they place nothing, so the
+plain callable on the device's tensors, and its arguments come as meta
+tensors (``arg_specs``: shapes and dtypes, no memory) that the dry run
+counts on. The rules are computed and recorded as the reference computes
+them.
+
+On a mesh without a world (one device) they place nothing, so the
 sharding variants (``sequence_parallel``, ``dp_major``,
 ``context_parallel``, ``moe_mode``, ``pod_compress``) change no
-computation. One code path, no divergence."""
+computation. On a mesh over a ``torch.distributed`` world each rank builds
+its model with the rules (``build_model(mesh=, rules=)``: expert parallel
+moe, context-parallel prefill, the in-pod and int8 cross-pod gradient
+means), ``arg_specs`` are the rank's shapes, and ``make_args`` gives each
+rank its shard of the same global arguments: its blocks of the seeded
+weights and its rows of the global batch by the ``batch`` rule (pods
+first, as ``loss_and_grads`` folds them; within a pod each microbatch's
+rows split over the batch axes, as the reference shards each microbatch).
+One code path, no divergence."""
 
 from __future__ import annotations
 
@@ -20,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, suggest_microbatches
 from repro_torch.distributed.sharding import (
-    serve_rules, sharding_context, strip_pod, train_rules,
+    norm_axes, rank_rows, serve_rules, sharding_context, strip_pod,
+    train_rules,
 )
 from repro_torch.launch.inputs import (
     decode_input_specs, make_concrete, prefill_batch_specs, train_batch_specs,
@@ -95,8 +106,11 @@ def _device(mesh) -> torch.device:
     return mesh.devices[0]
 
 
-def _models(cfg: ModelConfig, mesh, **opts) -> Tuple[Model, Model]:
-    """(the model on the mesh's device, the same model on meta)."""
+def _models(cfg: ModelConfig, mesh, rules, **opts) -> Tuple[Model, Model]:
+    """(the model on the mesh's device, the same model on meta); on a
+    mesh over a world, this rank's model."""
+    if mesh.world is not None:
+        opts.update(mesh=mesh, rules=rules)
     return (build_model(cfg, device=_device(mesh), **opts),
             build_model(cfg, device="meta", **opts))
 
@@ -133,8 +147,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
                      heads=None, kv_heads=None, ffn=None, vocab=None)
         rules = fit_batch_sharding(rules, mesh, shape.global_batch)
     rules_model = strip_pod(rules) if multi_pod else rules
-    model, meta_model = _models(cfg, mesh, remat=remat)
-    nmb = num_microbatches or suggest_microbatches(cfg, shape, 1)
+    model, meta_model = _models(cfg, mesh, rules_model, remat=remat)
+    dp = (1 if mesh.world is None
+          else mesh.shape.get("data", 1) * mesh.shape.get("pod", 1))
+    nmb = num_microbatches or suggest_microbatches(cfg, shape, dp)
     tc = TrainConfig(num_microbatches=nmb, optimizer=optimizer,
                      pod_compress=pod_compress)
     step, opt_init = make_train_step(model, tc)
@@ -148,13 +164,14 @@ def build_train_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
 
     def make_args(seed: int = 0):
         params = _params(model, seed)
-        return (params, opt_init(params),
-                make_concrete(batch_specs, vocab=cfg.vocab_size,
-                              device=model.device))
+        return (params, opt_init(params), rank_rows(
+            make_concrete(batch_specs, vocab=cfg.vocab_size,
+                          device=model.device), mesh, rules["batch"], nmb))
 
     return StepBundle(
         fn=train_step,
-        arg_specs=(params_shape, opt_init(params_shape), batch_specs),
+        arg_specs=(params_shape, opt_init(params_shape),
+                   rank_rows(batch_specs, mesh, rules["batch"], nmb)),
         model=model, rules=rules,
         meta={"kind": "train", "num_microbatches": nmb, "optimizer": optimizer,
               "remat": remat},
@@ -181,7 +198,7 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
         shape.global_batch)
     if context_parallel:
         rules["seq"] = "model"      # §Perf: context-parallel dense prefill
-    model, meta_model = _models(cfg, mesh, remat=remat,
+    model, meta_model = _models(cfg, mesh, rules, remat=remat,
                                 **_model_opts(cfg, q_block, k_block))
     batch_specs = prefill_batch_specs(cfg, shape)
     Smax = max_len or _dec_len(cfg, shape)
@@ -191,12 +208,14 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
             return model.prefill(params, batch, max_len=Smax)
 
     def make_args(seed: int = 0):
-        return (_params(model, seed),
-                make_concrete(batch_specs, vocab=cfg.vocab_size,
-                              device=model.device))
+        return (_params(model, seed), rank_rows(
+            make_concrete(batch_specs, vocab=cfg.vocab_size,
+                          device=model.device), mesh, rules["batch"]))
 
     return StepBundle(fn=serve_prefill,
-                      arg_specs=(_params(meta_model, 0), batch_specs),
+                      arg_specs=(_params(meta_model, 0),
+                                 rank_rows(batch_specs, mesh,
+                                           rules["batch"])),
                       model=model, rules=rules,
                       meta={"kind": "prefill", "max_len": Smax},
                       make_args=make_args)
@@ -211,8 +230,12 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
     rules = fit_batch_sharding(
         rules_for(cfg, "serve", multi_pod, moe_mode=moe_mode), mesh,
         shape.global_batch)
-    model, meta_model = _models(cfg, mesh, remat=remat)
+    model, meta_model = _models(cfg, mesh, rules, remat=remat)
     B, S = shape.global_batch, shape.seq_len
+    nb = 1
+    for a in norm_axes(rules["batch"]):
+        nb *= mesh.shape[a] if mesh.world is not None else 1
+    B //= nb                          # this rank's slots
     cache_len = _dec_len(cfg, shape)
 
     def cache(m: Model):
@@ -229,13 +252,15 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
     def make_args(seed: int = 0):
         c = cache(model)
         c["lengths"].fill_(cache_len - 1)
-        tokens = make_concrete({"tokens": tok_specs}, vocab=cfg.vocab_size,
-                               device=model.device)["tokens"]
+        tokens = rank_rows(make_concrete(
+            {"tokens": tok_specs}, vocab=cfg.vocab_size,
+            device=model.device), mesh, rules["batch"])["tokens"]
         return _params(model, seed), c, tokens, c["lengths"].clone()
 
     return StepBundle(fn=serve_decode,
                       arg_specs=(_params(meta_model, 0), cache(meta_model),
-                                 tok_specs, len_specs),
+                                 *rank_rows({"t": tok_specs, "l": len_specs},
+                                            mesh, rules["batch"]).values()),
                       model=model, rules=rules,
                       meta={"kind": "decode", "cache_len": S},
                       make_args=make_args)

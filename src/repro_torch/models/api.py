@@ -46,19 +46,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def tp_of(mesh) -> int:
+    """The mesh's ``model`` size, by which heads and vocab are padded."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
 def build_model(cfg: ModelConfig, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16, remat: str = "full",
-                **opts) -> Model:
+                mesh=None, rules=None, **opts) -> Model:
     """Dispatch on family: the decoder-only transformer (dense, moe, vlm),
     xlstm (ssm), hymba (hybrid) and the encoder-decoder (encdec).
 
     ``remat`` is ``loss_fn``'s activation checkpointing around each layer
-    (``"full"``, ``"dots"`` or ``"none"``; ``common.with_remat``)."""
+    (``"full"``, ``"dots"`` or ``"none"``; ``common.with_remat``).
+
+    ``mesh`` (``launch.mesh`` over a ``torch.distributed`` world) and
+    ``rules`` (``distributed.sharding``'s tables) build this rank's model,
+    on the mesh's device: heads and vocab padded by ``cfg.padded(tp)`` in
+    every family; the transformer families also run their moe layers
+    expert parallel and their prefill context parallel where the rules
+    say so. Without a mesh, one device, as always."""
     from repro_torch.models import encdec, hymba, transformer, xlstm
 
+    if (mesh is not None and mesh.world is not None
+            and torch.device(device).type != "meta"):
+        device = mesh.world.device
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(dev)
+    if mesh is not None:
+        opts.update(mesh=mesh, rules=rules)
     modules = {"dense": transformer, "moe": transformer, "vlm": transformer,
                "ssm": xlstm, "hybrid": hymba, "encdec": encdec}
     if cfg.family in modules:

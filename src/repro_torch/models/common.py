@@ -19,9 +19,11 @@ activation checkpointing.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
@@ -38,35 +40,76 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 # ---------------------------------------------------------------------------
 
 class Spec(NamedTuple):
-    """Declarative parameter: shape, init kind and dtype (``None``: the
-    model's working dtype)."""
+    """Declarative parameter: shape, init kind, dtype (``None``: the
+    model's working dtype) and, where a mesh may shard it, its logical
+    axes (``None``: replicated on every rank)."""
 
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
     fan_in: Optional[int] = None
     dtype: Optional[torch.dtype] = None
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
-def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype):
+def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype,
+               block: Optional[Tuple[slice, ...]] = None):
+    """One leaf; ``block`` (a slice a dim) keeps only that block of it."""
     dtype = spec.dtype or dtype
+    block = block or tuple(slice(0, n) for n in spec.shape)
+    shape = tuple(s.stop - s.start for s in block)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
     fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
                           else spec.shape[-1])
     scale = 1.0 / math.sqrt(max(1, fan))
-    x = torch.randn(spec.shape, generator=gen, device=device,
-                    dtype=torch.float32)
-    return (x * scale).to(dtype)
+    if spec.axes is None:
+        x = torch.randn(spec.shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale)[block].to(dtype)
+    return _draw_by_matrix(gen, spec.shape, block, scale, device, dtype)
 
 
-def init_tree(gen: torch.Generator, specs, device, dtype):
+def _draw_by_matrix(gen: torch.Generator, shape, block, scale: float,
+                    device, dtype) -> torch.Tensor:
+    """A leaf a mesh may split (its Spec has ``axes``), drawn one matrix
+    (its last two dims) at a time, each from a seed of its own: one draw
+    of ``gen`` plus the matrix's index. A rank draws only the matrices its
+    ``block`` meets and keeps their block, so its leaf is that block of
+    the one-device draw and it holds no more than one fp32 matrix beyond
+    its own share."""
+    base = int(torch.randint(2 ** 31, (1,), generator=gen,
+                             device=gen.device))
+    out = torch.empty(tuple(s.stop - s.start for s in block), dtype=dtype,
+                      device=device)
+    if out.device.type == "meta":
+        return out
+    sub = torch.Generator(device=out.device)
+    lead = [range(s.start, s.stop) for s in block[:-2]]
+    for j, idx in enumerate(itertools.product(*lead)):
+        seed = base + (int(np.ravel_multi_index(idx, shape[:-2])) if idx
+                       else 0)
+        m = torch.randn(shape[-2:], generator=sub.manual_seed(seed),
+                        device=out.device, dtype=torch.float32)
+        out[np.unravel_index(j, out.shape[:-2])] = \
+            (m[block[-2:]] * scale).to(dtype)
+    return out
+
+
+def init_tree(gen: torch.Generator, specs, device, dtype,
+              blocks: Optional[Dict[str, Tuple[slice, ...]]] = None,
+              prefix: str = ""):
     """Instantiate a nested dict of Specs, drawing from ``gen`` in sorted key
-    order (the order ``jax.tree.flatten`` visits the reference's tree)."""
+    order (the order ``jax.tree.flatten`` visits the reference's tree).
+    ``blocks`` (``{leaf path: slices}``, a rank's on a mesh) draws only
+    those blocks of the leaves it names."""
     if isinstance(specs, Spec):
-        return _init_leaf(gen, specs, device, dtype)
-    return {k: init_tree(gen, specs[k], device, dtype) for k in sorted(specs)}
+        return _init_leaf(gen, specs, device, dtype,
+                          (blocks or {}).get(prefix))
+    return {k: init_tree(gen, specs[k], device, dtype, blocks,
+                         f"{prefix}/{k}" if prefix else k)
+            for k in sorted(specs)}
 
 
 def unstack(tree, n: int) -> List[Dict[str, Any]]:
@@ -81,8 +124,21 @@ def stacked(specs, num: int):
     """Prepend a layer dimension to every Spec in the tree."""
     if isinstance(specs, Spec):
         return Spec((num,) + specs.shape, specs.init, specs.fan_in,
-                    specs.dtype)
+                    specs.dtype,
+                    None if specs.axes is None else (None,) + specs.axes)
     return {k: stacked(v, num) for k, v in specs.items()}
+
+
+def sharded_leaves(specs, prefix: str = "") -> Dict[str, Spec]:
+    """``{leaf path: Spec}`` of the Specs that carry axes (paths as
+    ``repro_torch.tree.flatten_with_paths`` writes them)."""
+    if isinstance(specs, Spec):
+        return {} if specs.axes is None else {prefix: specs}
+    out: Dict[str, Spec] = {}
+    for k in sorted(specs):
+        out.update(sharded_leaves(specs[k], f"{prefix}/{k}" if prefix
+                                  else k))
+    return out
 
 
 def attn_specs(d_model: int, nq: int, nkv: int, hd: int,

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, tp_of
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
     attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
@@ -40,8 +40,8 @@ from repro_torch.models.common import (
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          remat: str = "full") -> Model:
-    pd = cfg.padded(1)
+          remat: str = "full", mesh=None, rules=None) -> Model:
+    pd = cfg.padded(tp_of(mesh))
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
 

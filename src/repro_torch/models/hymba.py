@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, tp_of
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_decode_ring,
     attention_prefill, attention_train, attn_qkv, attn_specs, cache_update,
@@ -163,8 +163,9 @@ def _segments(cfg: ModelConfig) -> List[int]:
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          remat: str = "full", chunk: int = 256) -> Model:
-    pd = cfg.padded(1)
+          remat: str = "full", chunk: int = 256, mesh=None,
+          rules=None) -> Model:
+    pd = cfg.padded(tp_of(mesh))
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
     ds, conv_w, W = cfg.ssm_state, cfg.conv_width, cfg.window

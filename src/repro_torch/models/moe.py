@@ -1,10 +1,30 @@
-"""Mixture-of-Experts FFN, single-device dispatch.
+"""Mixture-of-Experts FFN with expert parallelism.
 
-Port of ``repro.models.moe`` with one device holding every expert: the
-reference's ``shard_map`` bodies collapse to its local path with ``tp = 1``,
-``num_local = E`` and ``e_lo = 0``. Routing is top-k softmax with capacity
+Port of ``repro.models.moe``. Routing is top-k softmax with capacity
 (sort-based ranking, no [T, E] one-hot), token dropping, and the
 switch-style load-balancing aux loss.
+
+Without a mesh one device holds every expert: the reference's ``shard_map``
+bodies collapse to its local path with ``tp = 1``, ``num_local = E`` and
+``e_lo = 0``. On a mesh (``launch.mesh`` over a ``torch.distributed``
+world) each rank runs the reference's per-device body on its own tensors,
+with the collectives of ``distributed.sharding``:
+
+* ``ep`` (``_moe_body_ep``): experts split over ``model``, ``num_local =
+  E / tp`` a rank from ``e_lo = axis_index("model") * num_local``; with an
+  ``fsdp`` axis the expert weights' ``d_model`` dim is stored split and
+  gathered per layer (ZeRO-3). Tokens replicated over ``model`` combine
+  with one ``psum`` over ``model``; a batch split over ``model``
+  (dp-major) is gathered over ``model`` first and the sum scattered back
+  (``psum_scatter``);
+* ``ep2d`` (``_moe_body_ep2d``): each expert's ``d_ff`` also split over
+  ``ffn2d`` (``data``); token chunks are gathered over ``ffn2d``, the GLU
+  runs on the local ``d_ff`` slice, one ``psum`` over ``(ffn2d, model)``
+  combines, and each rank keeps its own rows.
+
+The load-balancing term's collectives run only where it is used
+(``need_aux``: the training forward), as the reference's compiler drops
+them from a prefill that discards it.
 
 The ops are chosen to give the reference's answers on both devices and to
 keep the decode step free of host syncs, so that a CUDA graph can capture
@@ -25,10 +45,11 @@ the reference computes them with ``jnp.einsum`` outside any kernel."""
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.common import Spec, silu
 
 
@@ -44,9 +65,12 @@ def moe_specs(d_model: int, d_ff: int, num_experts: int) -> Dict[str, Spec]:
     return {
         "router": Spec((d_model, num_experts), fan_in=d_model,
                        dtype=torch.float32),
-        "wi": Spec((num_experts, d_model, d_ff), fan_in=d_model),
-        "wg": Spec((num_experts, d_model, d_ff), fan_in=d_model),
-        "wo": Spec((num_experts, d_ff, d_model), fan_in=d_ff),
+        "wi": Spec((num_experts, d_model, d_ff), fan_in=d_model,
+                   axes=("expert", "fsdp", "expert_ffn")),
+        "wg": Spec((num_experts, d_model, d_ff), fan_in=d_model,
+                   axes=("expert", "fsdp", "expert_ffn")),
+        "wo": Spec((num_experts, d_ff, d_model), fan_in=d_ff,
+                   axes=("expert", "expert_ffn", "fsdp")),
     }
 
 
@@ -141,12 +165,95 @@ def _capacity(tokens: int, dims: MoEDims) -> int:
     return max(4, c)
 
 
-def moe_apply(params, x: torch.Tensor, dims: MoEDims):
-    """MoE FFN on one device. x: [B, S, d] -> (y [B, S, d], aux). Capacity
-    counts every token of the call, padding and inactive decode slots
-    included, as in the reference."""
+def moe_apply(params, x: torch.Tensor, dims: MoEDims, *, mesh=None,
+              batch_axes: Tuple[str, ...] = (),
+              fsdp_axis: Optional[str] = None,
+              ffn2d_axis: Optional[str] = None, chunk_tokens: int = 4096,
+              need_aux: bool = True):
+    """MoE FFN. x: [B, S, d] (this rank's rows of a batch split over
+    ``batch_axes``) -> (y [B, S, d], aux). Capacity counts every token of
+    the call, padding and inactive decode slots included, as in the
+    reference. Without a mesh: one device, every expert."""
+    B, S, d = x.shape
+    if mesh is None:
+        T = B * S
+        y, aux = _moe_local(x.reshape(T, d), params, dims, 0,
+                            dims.num_experts, _capacity(T, dims))
+        return y.view(B, S, d), aux
+    tp = mesh.shape["model"]
+    if dims.num_experts % tp:
+        raise ValueError(f"{dims.num_experts} experts do not split over "
+                         f"model = {tp}")
+    num_local = dims.num_experts // tp
+    if ffn2d_axis is None:
+        return _moe_body_ep(params, x, dims, mesh, num_local, fsdp_axis,
+                            batch_axes, need_aux)
+    return _moe_body_ep2d(params, x, dims, mesh, num_local, ffn2d_axis,
+                          chunk_tokens, batch_axes, need_aux)
+
+
+def _moe_body_ep(params, x, dims: MoEDims, mesh, num_local: int, fsdp_axis,
+                 batch_axes, need_aux: bool):
+    """Per-rank body, mode ``ep`` (ref ``moe.py:169-202``). Standard: x
+    replicated over model, combined by one psum. Dp-major: the batch itself
+    split over model, gathered over the model column so each expert-owning
+    rank serves every token, the sum scattered back."""
+    gather_model = "model" in batch_axes
+    if fsdp_axis is not None:   # ZeRO-3: gather this layer's expert weights
+        params = dict(params)
+        for k in ("wi", "wg"):
+            params[k] = sh.all_gather(params[k], fsdp_axis, 1, mesh=mesh)
+        params["wo"] = sh.all_gather(params["wo"], fsdp_axis, 2, mesh=mesh)
+    B, S, d = x.shape
+    if gather_model:
+        x = sh.all_gather(x, "model", 0, mesh=mesh)       # [B * tp, S, d]
+    Bg = x.shape[0]
+    T = Bg * S
+    e_lo = sh.axis_index("model", mesh=mesh) * num_local
+    y, aux = _moe_local(x.reshape(T, d), params, dims, e_lo, num_local,
+                        _capacity(T, dims))
+    if gather_model:
+        y = sh.psum_scatter(y.view(Bg, S, d), "model", 0, mesh=mesh)
+    else:
+        y = sh.psum(y, "model", mesh=mesh).view(Bg, S, d)
+    if need_aux:
+        # routing is identical across model ranks; mean over the batch
+        aux = (sh.psum(aux, "model", mesh=mesh)
+               / sh.axis_size("model", mesh=mesh))
+        if batch_axes:
+            aux = sh.pmean(aux, batch_axes, mesh=mesh)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_body_ep2d(params, x, dims: MoEDims, mesh, num_local: int,
+                   ffn2d_axis: str, chunk_tokens: int, batch_axes,
+                   need_aux: bool):
+    """Per-rank body, mode ``ep2d`` (ref ``moe.py:205-237``): expert d_ff
+    split over ``ffn2d_axis``; token chunks gathered over it, the GLU on
+    the local d_ff slice, one psum over (ffn2d, model), this rank's rows
+    kept."""
     B, S, d = x.shape
     T = B * S
-    y, aux = _moe_local(x.reshape(T, d), params, dims, 0, dims.num_experts,
-                        _capacity(T, dims))
-    return y.view(B, S, d), aux
+    dp = sh.axis_size(ffn2d_axis, mesh=mesh)
+    mine = sh.axis_index(ffn2d_axis, mesh=mesh)
+    e_lo = sh.axis_index("model", mesh=mesh) * num_local
+    nchunks = max(1, (T + chunk_tokens - 1) // chunk_tokens)
+    while T % nchunks:
+        nchunks += 1
+    csize = T // nchunks
+    x2d = x.reshape(T, d)
+    ys = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(nchunks):
+        xc = sh.all_gather(x2d[ci * csize:(ci + 1) * csize], ffn2d_axis, 0,
+                           mesh=mesh)                      # [csize * dp, d]
+        yc, a = _moe_local(xc, params, dims, e_lo, num_local,
+                           _capacity(csize * dp, dims))
+        yc = sh.psum(yc, (ffn2d_axis, "model"), mesh=mesh)
+        ys.append(yc[mine * csize:(mine + 1) * csize])
+        aux = aux + a
+    y = ys[0] if nchunks == 1 else torch.cat(ys)
+    aux = aux / nchunks
+    if need_aux and batch_axes:
+        aux = sh.pmean(aux, batch_axes, mesh=mesh)
+    return y.reshape(B, S, d), aux

@@ -21,7 +21,22 @@ layers' summed load-balancing term.
 
 The KV cache is ``{"k", "v": [L, B, Smax, Hkv, D], "lengths": [B]}``.
 ``decode_step`` writes the new K/V rows into the cache it is given, in
-place (the counterpart of the reference's donated cache), and returns it."""
+place (the counterpart of the reference's donated cache), and returns it.
+
+On a mesh (``build(..., mesh=, rules=)``; ``launch.mesh`` over a
+``torch.distributed`` world) each rank builds the model the reference
+builds on that mesh: heads and vocab padded by ``cfg.padded(tp)``, so the
+reference's params carry across unchanged, and every entry point takes
+this rank's rows of a batch split over the ``batch`` rule's axes. Dense
+layers stay replicated over ``model`` (the reference shards them by GSPMD
+propagation, with the same numbers); the moe layers run expert parallel
+(``moe.moe_apply`` with the mesh and the rules' axes), and each rank's
+params hold its experts (``extras["param_specs"]``; ``bridge.
+params_for_rank``). With ``rules["seq"] == "model"`` prefill is context
+parallel (ref ``_cp_attention``): each rank embeds and runs its ``S/tp``
+slice of the sequence, attention gathers K/V over ``model`` and calls
+``attention_prefill`` at ``q_offset = rank * S/tp``, and the cache and
+logits equal the one-device ones'."""
 
 from __future__ import annotations
 
@@ -30,13 +45,14 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
     attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
     embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
-    rmsnorm, rope, rope_tables, stacked, unstack, with_remat,
+    rmsnorm, rope, rope_tables, sharded_leaves, stacked, unstack, with_remat,
 )
 
 
@@ -64,9 +80,9 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          remat: str = "full", q_block: int = 512,
-          k_block: int = 1024) -> Model:
-    pd = cfg.padded(1)
+          remat: str = "full", q_block: int = 512, k_block: int = 1024,
+          mesh=None, rules=None) -> Model:
+    pd = cfg.padded(mesh.shape.get("model", 1) if mesh is not None else 1)
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L = cfg.d_model, cfg.num_layers
     eps = cfg.norm_eps
@@ -79,16 +95,31 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     if cfg.family == "moe":
         moe_dims = moe_lib.MoEDims(cfg.num_experts, cfg.num_experts_per_tok,
                                    cfg.moe_capacity_factor, d, cfg.d_ff)
+    place = _Placement(mesh, rules, specs)
+    cp = place.cp
 
     def init(gen: torch.Generator):
-        """Seeded parameters on the model's device (``gen`` lives there)."""
-        return init_tree(gen, specs, device, dtype)
+        """Seeded parameters on the model's device (``gen`` lives there):
+        on a mesh, this rank's blocks of the one-device draw, drawn
+        without the rest (``common.init_tree``)."""
+        return init_tree(gen, specs, device, dtype, place.blocks)
 
-    def _ffn(lp, h):
+    def _ffn(lp, h, need_aux: bool = False):
         """(FFN output, moe load-balancing term or 0)."""
-        if moe_dims is not None:
+        if moe_dims is None:
+            return glu_apply(lp["ffn"], h), 0.0
+        if mesh is None:
             return moe_lib.moe_apply(lp["moe"], h, moe_dims)
-        return glu_apply(lp["ffn"], h), 0.0
+        if cp:          # the experts serve the whole sequence's tokens
+            y, aux = _ffn(lp, sh.all_gather(h, "model", 1, mesh=mesh),
+                          need_aux)
+            n = h.shape[1]
+            r = sh.axis_index("model", mesh=mesh)
+            return y[:, r * n:(r + 1) * n], aux
+        return moe_lib.moe_apply(
+            lp["moe"], h, moe_dims, mesh=mesh, batch_axes=place.batch_axes,
+            fsdp_axis=_axis(place.rules, "fsdp"),
+            ffn2d_axis=_axis(place.rules, "expert_ffn"), need_aux=need_aux)
 
     def _attn_out_ffn(x, o, lp):
         """Residual add of the attention output, second norm, FFN."""
@@ -112,7 +143,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         o = attention_train(q, k, v, causal=True, window=window)
         x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
                             lp["ln2"], eps, train=True)
-        y, aux = _ffn(lp, h2)
+        y, aux = _ffn(lp, h2, need_aux=True)
         return x + y, aux
 
     layer = with_remat(layer_train, remat)
@@ -149,18 +180,32 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         vl = batch.get("lengths")
         ks = torch.zeros((L, B, Smax, nkv, hd), dtype=x.dtype, device=device)
         vs = torch.zeros_like(ks)
-        tables = rope_tables(torch.arange(S, device=device)[None, :], hd,
-                             cfg.rope_theta)
+        lo, n = 0, S                     # this rank's rows of the sequence
+        if cp:
+            tp = mesh.shape["model"]
+            if S % tp:
+                raise ValueError(f"context-parallel prefill: S={S} does not "
+                                 f"split over model = {tp}")
+            n = S // tp
+            lo = sh.axis_index("model", mesh=mesh) * n
+            x = x[:, lo:lo + n].contiguous()
+        tables = rope_tables(torch.arange(lo, lo + n, device=device)[None, :],
+                             hd, cfg.rope_theta)
         for i, lp in enumerate(unstack(params["layers"], L)):
             h = rmsnorm(x, lp["ln1"], eps)
             q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
             q, k = rope(q, tables), rope(k, tables)
+            if cp:      # K/V gathered once per layer (ref _cp_attention)
+                k = sh.all_gather(k, "model", 1, mesh=mesh)
+                v = sh.all_gather(v, "model", 1, mesh=mesh)
             o = attention_prefill(q, k, v, causal=True, window=windows[i],
-                                  q_block=q_block, k_block=k_block,
-                                  kv_valid=vl)
-            x = _attn_out_ffn(x, o.reshape(B, S, nq * hd), lp)
+                                  q_block=min(q_block, n) if cp else q_block,
+                                  k_block=k_block, q_offset=lo, kv_valid=vl)
+            x = _attn_out_ffn(x, o.reshape(B, n, nq * hd), lp)
             ks[i, :, :S] = k
             vs[i, :, :S] = v
+        if cp:
+            x = sh.all_gather(x, "model", 1, mesh=mesh)
         x_last = (x[:, -1:].contiguous() if vl is None
                   else last_valid_slice(x, vl))
         logits = lm_head(params["embed"], x_last, eps)[:, 0]
@@ -201,5 +246,42 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
         # moe excluded from prompt padding, as in the reference: junk
         # tokens contend for expert capacity
-        extras={"prompt_pad": cfg.family != "moe"},
+        extras={"prompt_pad": cfg.family != "moe", **place.extras()},
     )
+
+
+class _Placement:
+    """Where a model's tensors live on a mesh: the rules (``serve_rules``
+    when none are given), the batch axes the mesh has, whether prefill is
+    context parallel, and each sharded leaf's :class:`PartitionSpec` and
+    this rank's block of it."""
+
+    def __init__(self, mesh, rules, specs):
+        self.mesh = mesh
+        self.rules = dict(rules if rules is not None
+                          else sh.serve_rules("pod" in (mesh.shape
+                                                        if mesh else {})))
+        self.batch_axes = tuple(a for a in sh.norm_axes(self.rules.get(
+            "batch")) if mesh is not None and a in mesh.shape)
+        self.cp = mesh is not None and self.rules.get("seq") == "model"
+        self.param_specs, self.blocks = {}, {}
+        if mesh is not None:
+            ctx = sh.ShardingContext(mesh, self.rules)
+            for path, leaf in sharded_leaves(specs).items():
+                self.param_specs[path] = ctx.spec(leaf.axes)
+                self.blocks[path] = sh.block_slices(
+                    leaf.shape, self.param_specs[path], mesh)
+
+    def extras(self):
+        if self.mesh is None:
+            return {}
+        return {"mesh": self.mesh, "rules": self.rules,
+                "param_specs": self.param_specs}
+
+
+def _axis(rules, name):
+    """The rule's first mesh axis (the reference's ``_axis``)."""
+    v = rules.get(name)
+    if isinstance(v, tuple):
+        v = v[0] if v else None
+    return v

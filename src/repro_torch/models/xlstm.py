@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import softmax_scale
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, tp_of
 from repro_torch.models.common import (
     Spec, add_rmsnorm, chunked_loss, embed_specs, embed_tokens, init_tree,
     last_valid_slice, lm_head, rmsnorm, silu, stacked, unstack, with_remat,
@@ -193,7 +193,8 @@ def _slstm_step(p, h, state):
 
 
 def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
-          remat: str = "full", chunk: int = 256) -> Model:
+          remat: str = "full", chunk: int = 256, mesh=None,
+          rules=None) -> Model:
     d, L = cfg.d_model, cfg.num_layers
     if L % 2:
         raise ValueError("xlstm pair-scan needs an even layer count")
@@ -202,7 +203,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     d_in = 2 * d
     hd = d_in // nh
     eps = cfg.norm_eps
-    V = cfg.padded(1).vocab_size
+    V = cfg.padded(tp_of(mesh)).vocab_size
     scale = softmax_scale(hd ** -0.5, hd, dtype)
 
     pair_specs = {"m": _mlstm_specs(d, nh, d_in, hd), "s": _slstm_specs(d)}

@@ -35,7 +35,18 @@ benchmark baseline: per-request cache scatter at admission, and per step
 the sampled tokens plus one device read per active slot on the host. It
 runs eagerly on either device.
 
-Not ported: sharding (one device here).
+On a mesh (a model built with ``build_model(mesh=)`` over a
+``torch.distributed`` world of ``data = 1``) every rank runs the same
+server over every slot, and the model's moe layers run expert parallel
+with the tokens replicated over ``model``. The ranks' collectives pair up
+only while their host decisions agree, so the measured prefill time that
+feeds AIMD is the ranks' max (one all-reduce a prefill, where the engine
+waits for the prefill anyway), and the sampled tokens are broadcast from
+the first rank inside the step, before the one packed host copy. Under
+NCCL the decode step is captured with its collectives inside; under gloo
+(host-side, so not capturable) it runs eagerly, and
+``engine.decode.graph`` says which. ``engine.mesh`` names the mesh. A
+server over a ``data`` axis is not ported yet.
 
 Calibrated-simulation mode (``service_model`` + ``VirtualClock``) advances
 the clock by modeled time, so reports are byte-identical per seed."""
@@ -53,6 +64,7 @@ import torch
 from repro_torch.core import metrics as M
 from repro_torch.core.batching import AIMDController, bucket, prompt_length_ladder
 from repro_torch.core.metrics import MetricsRegistry
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import credit_launches, launch_counts
 from repro_torch.models.api import Model, resolve_device
 from repro_torch.serving.sampler import sample
@@ -84,9 +96,18 @@ class Request:
     failed: bool = False
 
 
+def _sample(logits, generator, temperature, mesh):
+    """The sampled tokens, on a mesh the first rank's on every rank."""
+    toks = sample(logits, generator, temperature=temperature)
+    if mesh is not None:
+        toks = sh.broadcast(toks, mesh.axis_names, mesh=mesh)
+    return toks
+
+
 def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
                          max_len: int,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         mesh=None):
     """Build the fused device-resident decode step (the engine's hot loop).
 
     Signature: ``(params, cache, lengths, cur, active, gen, max_new) ->
@@ -94,11 +115,12 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
     updated in place; ``packed`` is the single per-step host transfer
     ``cat([tokens, done])`` ([2*slots] int32). A slot finishes when its
     sampled token is EOS, its generated count reaches ``max_new``, or its
-    advanced context length reaches ``max_len - 1``."""
+    advanced context length reaches ``max_len - 1``. On a ``mesh`` the
+    tokens are the first rank's."""
 
     def fused(params, cache, lengths, cur, active, gen, max_new):
         logits, _ = model.decode_step(params, cache, cur, lengths)
-        toks = sample(logits, generator, temperature=temperature)
+        toks = _sample(logits, generator, temperature, mesh)
         act = active.to(torch.int32)
         new_len = lengths + act
         new_gen = gen + act
@@ -115,14 +137,14 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
 
 
 def make_decode_fn(model: Model, *, temperature: float,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, mesh=None):
     """The reference loop's decode step: ``(params, cache, tokens, lengths)
     -> tokens`` [slots] int32, the cache updated in place; the host does the
     rest."""
 
     def decode(params, cache, tokens, lengths):
         logits, _ = model.decode_step(params, cache, tokens, lengths)
-        return sample(logits, generator, temperature=temperature)
+        return _sample(logits, generator, temperature, mesh)
 
     return decode
 
@@ -214,6 +236,14 @@ class LMServer:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
         self.model = model
+        mesh = model.extras.get("mesh")
+        self.mesh = mesh if mesh is not None and mesh.world is not None \
+            else None
+        if self.mesh is not None and self.mesh.size(
+                [a for a in self.mesh.axis_names if a != "model"]) != 1:
+            raise NotImplementedError(
+                f"LMServer on a {self.mesh.shape} mesh: a server over a data "
+                f"axis is not ported; every axis but model must have size 1")
         self.slots = slots
         self.max_len = max_len
         self.temperature = temperature
@@ -277,10 +307,11 @@ class LMServer:
         if fused:
             self._decode_fused = make_fused_decode_fn(
                 model, temperature=temperature, eos=eos_token,
-                max_len=max_len, generator=self.generator)
+                max_len=max_len, generator=self.generator, mesh=self.mesh)
         else:
             self._decode = make_decode_fn(model, temperature=temperature,
-                                          generator=self.generator)
+                                          generator=self.generator,
+                                          mesh=self.mesh)
         # the fused step's CUDA graph (card only): the params tree it reads
         # (or that the eager step before its capture ran with), the graph,
         # its packed output, and its kernel launches per replay
@@ -413,7 +444,7 @@ class LMServer:
         self.rung_dispatches[int(plen)] = (
             self.rung_dispatches.get(int(plen), 0) + 1)
         # the service model is charged the *executed* shape (padded bucket)
-        dt = self._service_time("prefill", nb, plen, t0)
+        dt = self._agreed(self._service_time("prefill", nb, plen, t0))
         self.admission.record(n, dt)
         self.metrics.inc(M.QUERIES_SUBMITTED, n, model=self.model_id)
         self._observe_batch(n, dt)
@@ -431,13 +462,22 @@ class LMServer:
                         attrs={"batch": n, "padded_len": int(plen)})
         self._place(batch, logits, pcache, free, vlens, dt)
 
+    def _agreed(self, dt: float) -> float:
+        """The ranks' largest ``dt`` on a mesh (their admission decisions
+        must agree), else ``dt``."""
+        if self.mesh is None:
+            return dt
+        dev = self.device if self.mesh.world.backend == "nccl" else "cpu"
+        t = torch.tensor([dt], dtype=torch.float64, device=dev)
+        return float(sh.pmax(t, self.mesh.axis_names, mesh=self.mesh)[0])
+
     @torch.no_grad()
     def _place(self, batch, logits, pcache, free, vlens, dt) -> None:
         """Admission's second half: sample each request's first token from
         its prefill ``logits`` and move request ``i`` (row ``i`` of
         ``pcache``, ``vlens[i]`` valid positions) into slot ``free[i]``."""
         n = len(batch)
-        first = sample(logits, self.generator, temperature=self.temperature)
+        first = _sample(logits, self.generator, self.temperature, self.mesh)
         first_np = first.cpu().numpy()
         if not self.fused:
             # reference loop: per-request scatter, per-slot state writes
@@ -487,7 +527,9 @@ class LMServer:
         done]``. CPU: eager. Card: the first step with a params tree eager
         on a side stream, the next captured as a CUDA graph, then replays
         (checked by the params object's identity, once a step)."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or (
+                self.mesh is not None and self.mesh.world.backend == "gloo"):
+            # the CPU has no graphs; gloo's collectives run on the host
             return self._decode_fused(params, *self._slot_state())
         if params is not self._graph_params:
             self._graph = self._graph_out = None
@@ -673,8 +715,9 @@ class LMServer:
         """Engine-level counters: prefill shapes dispatched, how chatty the
         decode loop is with the host, which attention implementation ran
         (``"plain"`` PyTorch on the CPU, ``"kernels"`` on the card), and
-        whether the fused step replayed as a CUDA graph."""
-        return {
+        whether the fused step replayed as a CUDA graph; on a mesh, the
+        mesh."""
+        rep = {
             "fused": self.fused,
             "attention_backend": ("kernels" if self.device.type == "cuda"
                                   else "plain"),
@@ -695,6 +738,11 @@ class LMServer:
                 "graph": self.graph_replays > 0,
             },
         }
+        if self.mesh is not None:
+            rep["mesh"] = {"shape": dict(self.mesh.shape),
+                           "backend": self.mesh.world.backend,
+                           "staged": self.mesh.world.staged}
+        return rep
 
     def report(self) -> Dict[str, Any]:
         """Canonical telemetry report (``repro.metrics/v1`` schema) plus the

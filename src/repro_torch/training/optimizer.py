@@ -10,11 +10,12 @@ Every update runs on the params' device with no host sync."""
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.distributed import sharding as sh
+from repro_torch.tree import flatten_with_paths, leaves, tree_map
 
 
 def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
@@ -33,6 +34,25 @@ class AdamWState(NamedTuple):
     master: Any          # fp32 master copy of params
 
 
+def _square_sums(grads, specs=None, mesh=None) -> List[torch.Tensor]:
+    """Each leaf's sum of squares over the whole leaf: where ``specs``
+    (``{leaf path: PartitionSpec}``) splits a leaf over ``mesh`` axes,
+    its ranks' sums are added (one all-reduce per set of axes)."""
+    flat = flatten_with_paths(grads)
+    sq = [torch.sum(torch.square(g.float())) for _, g in flat]
+    by_axes: Dict[tuple, list] = {}
+    for i, (path, _) in enumerate(flat):
+        axes = mesh.axes(tuple(a for e in (specs or {}).get(path, ())
+                               for a in sh.norm_axes(e))) if mesh else ()
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        tot = sh.psum(torch.stack([sq[i] for i in idx]), axes, mesh=mesh)
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
+    return sq
+
+
 def adamw_init(params) -> AdamWState:
     return AdamWState(
         step=_step0(params), m=tree_map(_f32_zeros, params),
@@ -42,11 +62,14 @@ def adamw_init(params) -> AdamWState:
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
-    """-> (new params in their dtypes, new state, global grad norm)."""
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0, specs=None,
+                 mesh=None):
+    """-> (new params in their dtypes, new state, global grad norm).
+    ``specs``, ``mesh``: the leaves split over a mesh's ranks, whose norm
+    is that of the whole leaf (``_square_sums``)."""
     step = state.step + 1
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in leaves(grads)) + 1e-12)
+    sq = _square_sums(grads, specs, mesh)
+    gnorm = torch.sqrt(sum(sq) + 1e-12)
     scale = torch.clamp_max(grad_clip / gnorm, 1.0)
     stepf = step.float()
     bc1 = 1 - torch.pow(b1, stepf)

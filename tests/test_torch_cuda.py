@@ -232,6 +232,10 @@ PREFILL_CASES = [
     (2, 2048, 2048, 25, 5, 64, [2048, 1030], 2048, None, 512, 1024),
     (1, 3072, 3072, 25, 5, 64, None, 2048, None, 512, 1024),
     (2, 24, 24, 4, 2, 16, None, 16, None, 512, 1024),
+    # context-parallel prefill: one rank's 512 query rows of a 2048-token
+    # prompt (smollm's 15 / 5 heads of 64) at each of 4 ranks' offsets
+    *[(2, 512, 2048, 15, 5, 64, None, 0, off, 512, 1024)
+      for off in (0, 512, 1024, 1536)],
 ]
 
 
@@ -1110,3 +1114,33 @@ def test_train_linear_model_on_card_matches_cpu(dev):
     want = cpu(torch.from_numpy(x))
     assert float((got.cpu() - want).abs().max()) <= 1e-5
     assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
+
+
+def test_expert_parallel_moe_on_ranks_sharing_the_card(dev, tmp_path):
+    """dbrx reduced (2 layers, d_model 64, 4 experts top-2) on four gloo
+    ranks sharing the card, one expert a rank (``ep`` over (1, 4)): the
+    prefill logits and 4 greedy decode steps of every rank equal the
+    one-device port's within 2 bf16 roundings of each row's largest
+    logit (the ranks' partial sums meet in another order), the same on
+    every rank, and the decode kernel runs on each."""
+    import _torch_dist_ranks as R
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.sampler import sample
+
+    cfg = R.config(R.SERVE_CASE["arch"], R.SERVE_CASE["capacity"])
+    one = build_model(cfg.padded_config(4), device=dev)
+    params = one.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(1)).to(
+        device=dev, dtype=torch.int32)
+    want, _ = R._prefill_and_decode(one, params, tokens, decode_attention_op,
+                                    sample)
+    ranks = run_ranks(R.card_ep_rank, 4, params, tokens, device="cuda",
+                      share=True, timeout=300, tmpdir=str(tmp_path))
+    for got, launches in ranks:
+        assert launches == 4 * cfg.num_layers
+        for g, w in zip(got, want):
+            assert abs(g - w).max() <= 2 * BF16_ULP * abs(w).max()
+        for g, r0 in zip(got, ranks[0][0]):
+            assert (g == r0).all()

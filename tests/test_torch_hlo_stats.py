@@ -155,6 +155,29 @@ def test_flash_work_counts_pairs_row_by_row():
         assert w.flops == {"bf16": 4 * D * pairs * Hq}
 
 
+def test_flash_work_reads_only_the_keys_some_row_attends():
+    """The K/V bytes: the keys from the first row's window start to the
+    last row's position, below each length, against a loop over rows and
+    keys; a context-parallel rank (``q_offset`` < ``Sk - S``) reads only
+    the keys its rows see."""
+    B, S, Sk, Hq, Hkv, D = 2, 8, 32, 4, 2, 16
+    for off, window, lens in ((0, 0, [32, 32]), (8, 0, [32, 11]),
+                              (16, 5, [32, 20]), (24, 0, [32, 32]),
+                              (8, 0, [0, 32])):
+        rows = 0
+        for n in lens:
+            seen = {k for r in range(S) for k in range(Sk)
+                    if k <= off + r and k < n
+                    and (not window or k > off + r - window)}
+            rows += 2 * len(seen) if n else Sk
+        w = flash_attention_work(B, S, Hq, Hkv, D, Sk=Sk, q_offset=off,
+                                 window=window, lengths=lens)
+        assert w.bytes == (2 * B * S * Hq + rows * Hkv) * D * 2, (off, window)
+    # the last rank of a split prefill reads what the default offset reads
+    assert (flash_attention_work(B, S, Hq, Hkv, D, Sk=Sk, q_offset=Sk - S)
+            == flash_attention_work(B, S, Hq, Hkv, D, Sk=Sk))
+
+
 def _kernel_calls(device):
     """One call of each wrapper on the same seeded inputs: (name, wrapper
     call, plain-version call)."""
