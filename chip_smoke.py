@@ -36,7 +36,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    after a ``torch.matmul`` captured in one CUDA graph, its programmatic
    edges counted and its replay equal to the eager run bit for bit; the
    host's split of one eager RMSNorm call (wrapper Python, allocation,
-   stream lookup, the launch call);
+   stream lookup, the launch call); decode and flash at phase 16e-f's
+   tensor-parallel rank shapes (``TP_CASES``: 4 / 1 and 8 / 1 heads of 64);
 2b. the Clipper frontend stack: every named scenario with its selection
    state on the card and on the CPU, reports equal byte for byte (wall ms
    of each, policy-state device-to-host copies per query); a 1,048,576 x 4
@@ -204,7 +205,20 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    one-device prefill; 16d the pod-compressed training step of
    smollm-360m cut to ``POD_LAYERS`` layers on (pod 2, data 2), its
    gradients within ``POD_QUANTA`` of the one-device step's and only int8
-   payloads and fp32 scalars crossing ``pod``, 2 steps timed; the
+   payloads and fp32 scalars crossing ``pod``, a step timed; 16e
+   full-width smollm-360m at ``padded(4)`` dense tensor parallel over (1,
+   4) (attention, FFN, embedding and head split over ``model``): prefill
+   logits within ``TP_ROUNDINGS`` of the one device's or, past that, at
+   most ``ANCHOR_RATIO`` times as far from an fp32 prefill on the CPU,
+   a rank's weights a quarter of the split leaves and the norms, greedy
+   streams and engine report the one device's (a stream may part only at
+   a one-ulp tie of its logits), eager ms a step and the collectives a
+   step by op, axes and dtype; 16f the same server at ``padded(2)`` over
+   (data 2, model 2), 4 slots a data row, against the one device's; 16g
+   smollm-360m cut to ``POD_LAYERS`` layers on (data 2, model 2) under
+   ``train_rules`` (dense TP, ``fsdp`` over data): gradients within
+   ``SHARD_GRAD_ROUNDINGS``, AdamW and Adafactor on the one device's
+   gradients within ``OPT_RTOL`` of its update, a step of each timed; the
    kernels' launches (counts set to 0 before each path, read after, the
    ranks' summed) are the ``"sharded"`` path; phase 2 holds flash at the
    context-parallel shapes first (``CP_CASES``);
@@ -646,6 +660,21 @@ RMSNORM_EDGE_CASES = [(8, 1001, False), (37, 1001, True),
 CP_CASES = [dict(B=2, S=512, Hq=15, Hkv=5, D=64, lens=None, Sk=2048,
                  q_offset=off) for off in (0, 512, 1024, 1536)]
 
+# phase 16e-g's tensor-parallel ranks: smollm-360m at padded(4) on 4 ranks
+# holds 4 q heads and 1 kv head a rank (G = 4, D = 64), at padded(2) on
+# (data 2, model 2) 8 q heads and 1 kv head (G = 8) and 4 slots a data row;
+# decode over 8 slots at lengths 0-256, flash over an 8 x 256 prefill,
+# ragged
+TP_CASES = {
+    "decode_attention": [
+        (8, 4, 1, 64, 256, 0, [0, 1, 37, 128, 200, 255, 256, 64]),
+        (4, 8, 1, 64, 256, 0, [0, 100, 256, 31])],
+    "flash_attention": [
+        dict(B=8, S=256, Hq=4, Hkv=1, D=64,
+             lens=[256, 200, 129, 256, 131, 140, 250, 180]),
+        dict(B=4, S=256, Hq=8, Hkv=1, D=64, lens=[256, 200, 129, 31])],
+}
+
 # the launch cells' new lengths (phase 14), held against the plain versions
 # before anything is timed at them: decode at smollm's decode_32k (Smax
 # 32,768, G = 3, the cut batch of 32 at full and at spread lengths) and at
@@ -764,6 +793,10 @@ def kernel_cases(dev):
                                for c in LONG_CASES["flash_attention"]]
     out["flash_attention"] += [_flash_case(dev, randn, **c)
                                for c in CP_CASES]
+    out["decode_attention"] += [_decode_case(dev, randn, *c)
+                                for c in TP_CASES["decode_attention"]]
+    out["flash_attention"] += [_flash_case(dev, randn, **c)
+                               for c in TP_CASES["flash_attention"]]
     return out
 
 
@@ -2129,25 +2162,34 @@ def _wrap_logits(srv, per_req, calls):
     """Make ``srv`` file each sampled logits row (appended to ``calls`` by
     the wrapped ``sample``) under its request: a prefill's row i belongs
     to the i-th admitted slot in slot order, a decode step's row s to the
-    request in slot s."""
+    request in slot s. A server over a data axis samples its data row's
+    slots only (``LMServer.layout``), so it files theirs."""
     admit, decode = srv._admit, srv._decode_once
+    layout = getattr(srv, "layout", None)
+    lo, n_rows = ((0, srv.slots) if layout is None
+                  else (layout.lo, layout.per_row))
+
+    def mine(s):
+        return lo <= s < lo + n_rows
 
     def rec_admit(params):
         before, n = set(srv._active), len(calls)
         admit(params)
         if len(calls) > n:
-            new = sorted(s for s in srv._active if s not in before)
+            new = sorted(s for s in srv._active
+                         if s not in before and mine(s))
             for i, s in enumerate(new):
                 per_req.setdefault(srv._active[s].request_id,
                                    []).append(calls[-1][i])
 
     def rec_decode(params):
-        slots = {s: r.request_id for s, r in srv._active.items()}
+        slots = {s: r.request_id for s, r in srv._active.items()
+                 if mine(s)}
         n = len(calls)
         decode(params)
         if len(calls) > n:
             for s, rid in slots.items():
-                per_req[rid].append(calls[-1][s])
+                per_req[rid].append(calls[-1][s - lo])
 
     srv._admit, srv._decode_once = rec_admit, rec_decode
 
@@ -3016,8 +3058,9 @@ def _grad_gaps(card, cpu):
 
 
 def _opt_gap(card, cpu):
-    """The worst leaf of an optimizer result on the card against the CPU's,
-    over its largest magnitude; bf16 leaves may also differ by one bf16
+    """The worst leaf of an optimizer result on the card against the CPU's
+    (16g: the ranks' blocks against the one device's, on the host), over
+    its largest magnitude; bf16 leaves may also differ by one bf16
     rounding of the value."""
     import torch
     from repro_torch.tree import flatten_with_paths
@@ -3032,8 +3075,8 @@ def _opt_gap(card, cpu):
             err = (err - 2.0 ** -7 * w.abs()).clamp_min(0)
         r = float(err.max() / scale)
         if r > OPT_RTOL:
-            raise AssertionError(f"AdamW {path}: card vs CPU {r} of its "
-                                 f"largest magnitude (limit {OPT_RTOL})")
+            raise AssertionError(f"optimizer {path}: {r} of its largest "
+                                 f"magnitude off (limit {OPT_RTOL})")
         worst = max(worst, r)
     return worst
 
@@ -3746,7 +3789,25 @@ SHARD_RANKS = 4
 SHARD_PROMPTS = (32, 64, 128, 32, 64, 128, 32, 64)   # dbrx's requests
 SHARD_NEW = 16
 CP_PROMPT = 2048
-POD_LAYERS, POD_BATCH, POD_SEQ, POD_STEPS = 8, 8, 256, 2
+POD_LAYERS, POD_BATCH, POD_SEQ, POD_STEPS = 8, 8, 256, 1
+# 16e: dense tensor-parallel prefill logits against the one device's, in
+# bf16 roundings (2**-8) of the largest, as SHARDED_LOGIT_TOL (each rank's
+# fp32 partial sums over model rounded once where one device rounds the
+# product once). Over 32 layers the two bf16 runs drift apart as each
+# drifts from the exact answer (full width on the CPU: 4.77 roundings
+# apart, the ranks 4.11 from an fp32 run and one device 4.35), so past the
+# limit the ranks' logits are anchored as hymba's are: at most
+# ANCHOR_RATIO times as far from the fp32 prefill as the one device's.
+# 16g: the gradients in bf16 ulps (BF16_ULP, 2**-7) of each leaf's
+# largest, the bound the CPU tests hold the sharded step to
+# (tests/test_torch_distributed.py GRAD_ROUNDINGS)
+TP_ROUNDINGS = 3.0
+SHARD_GRAD_ROUNDINGS = 2.0
+# 16e-f: a greedy stream may part from the one device's only where the
+# ranks' logits row lies within this of the one device's (the card-vs-CPU
+# bound for smollm's 32 layers, LOGIT_TOL) and the one device's two
+# tokens within twice that row's difference (16b's rule)
+TP_ROW_TOL = LOGIT_TOL["smollm-360m"]
 
 
 def _sim_server(model, params, prompts, *, eager=False, rows=None,
@@ -3841,7 +3902,13 @@ def _sharded_rank(rank, p):
     from repro_torch.models import moe as moe_lib
 
     dev = torch.device(p["device"])
-    out = {}
+    out = {"seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):                     # seconds this rank spent in a phase
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
     route = moe_lib._route
     mesh = make_local_mesh(1, SHARD_RANKS, device=dev, share=True)
     rec = mesh.world.record
@@ -3856,16 +3923,16 @@ def _sharded_rank(rank, p):
         moe_lib._route = _steered_route(route, p["route_prefill"], rerouted,
                                         p_errs, "16b ranks vs one device")
         try:
-            out["ep_logits_err"] = _rel(model.prefill(
-                local, {"tokens": p["toks"]})[0], p["ref_logits"])
+            out["ep_logits_err"] = _rel(_full_logits(model, model.prefill(
+                local, {"tokens": p["toks"]})[0]), p["ref_logits"])
         finally:
             moe_lib._route = route
         # the negative control: the expert sum broken (each rank keeps its
         # own experts' part, the psum left out) must miss the limit widely
         psum, sh.psum = sh.psum, lambda x, axes, mesh=None: x
         try:
-            out["ep_fault_err"] = _rel(model.prefill(
-                local, {"tokens": p["toks"]})[0], p["ref_logits"])
+            out["ep_fault_err"] = _rel(_full_logits(model, model.prefill(
+                local, {"tokens": p["toks"]})[0]), p["ref_logits"])
         finally:
             sh.psum = psum
         # the server, routed as the one device's eager server routed; the
@@ -3894,10 +3961,11 @@ def _sharded_rank(rank, p):
                                         free=lambda: free)
         _zero_counts()
         rec.clear()
-        rows = {}
+        rows, steps = {}, []
         try:
             out["ep_streams"], out["ep_report"], _ = _sim_server(
-                model, local, p["prompts"], rows=rows, setup=track)
+                model, local, p["prompts"], rows=rows,
+                setup=lambda srv: (track(srv), _step_timer(srv, rec, steps)))
         finally:
             moe_lib._route = route
         out["ep_counts"] = _counts()
@@ -3911,30 +3979,22 @@ def _sharded_rank(rank, p):
         out["ep_part_rows"] = {rid: rows[rid][k] for rid, k in _parting(
             p["streams"], out["ep_streams"]).items()}
         del rows
-        # eager ms a step with every slot busy, and the bytes it moves
-        srv = _sim_server(model, local, [])[2]
-        for q in p["prompts"]:
-            srv.submit(q, max_new_tokens=64)
-        while srv._queue:                  # admit every request
-            srv.step(local)
-        torch.cuda.synchronize()
-        rec.clear()
-        t0 = time.perf_counter()
-        for _ in range(8):
-            srv._decode_once(local)
-        torch.cuda.synchronize()
-        out["ep_step_ms"] = (time.perf_counter() - t0) / 8 * 1e3
-        out["ep_step_bytes"] = sum(e["bytes"] for e in rec.summary()) / 8
-        out["ep_step_staged"] = rec.staged_bytes / 8
-        del model, local, srv
+        # eager ms a step with the most slots busy, and the bytes it moves
+        step = _busy_steps(steps)
+        out["ep_step_ms"], out["ep_step_bytes"], out["ep_step_staged"] = (
+            step["ms"], step["bytes"], step["staged"])
+        del model, local
         torch.cuda.empty_cache()
-        # c: context-parallel prefill, S / 4 rows a rank
+        lap("16b")
+        # c: context-parallel prefill, S / 4 rows a rank, the layers
+        # gathering their weights over model
         model = build_model(p["sm_cfg"], mesh=mesh,
                             rules=dict(sh.serve_rules(False), seq="model"))
+        local = params_for_rank(p["sm_params"], model)
         torch.cuda.synchronize()
         _zero_counts()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(p["sm_params"], {"tokens": p["prompt"]})
+        logits, cache = model.prefill(local, {"tokens": p["prompt"]})
         torch.cuda.synchronize()
         out["cp_ms"] = (time.perf_counter() - t0) * 1e3
         out["cp_counts"] = _counts()
@@ -3943,8 +4003,10 @@ def _sharded_rank(rank, p):
                                   for k in ("k", "v"))
         out["cp_equal"] = bool(torch.equal(logits, p["sm_logits"])) and all(
             torch.equal(cache[k], p["sm_cache"][k]) for k in ("k", "v"))
-        del model, logits, cache
+        del model, local, logits, cache
         torch.cuda.empty_cache()
+        lap("16c")
+        out.update(_tp_serve_rank(p, mesh, lap))
     # d: the pod-compressed step, (pod 2, data 2)
     mesh3 = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev,
                       share=True)
@@ -3953,7 +4015,8 @@ def _sharded_rank(rank, p):
         "pod", POD_SEQ, POD_BATCH, "train"), mesh3, num_microbatches=1)
     m = bundle.model
     specs = m.extras["param_specs"]
-    params = p["tr_params"]
+    params = params_for_rank(p["tr_params"], m)      # fsdp over data
+    one_grads = dict(flatten_with_paths(params_for_rank(p["one_grads"], m)))
     batch = sh.rank_rows(p["batch"], mesh3, bundle.rules["batch"])
     _zero_counts()
     rec3.clear()
@@ -3963,11 +4026,12 @@ def _sharded_rank(rank, p):
     pod = _pod_local_mean(_accumulate(m.loss_fn, params, batch, 1)[1],
                           specs, mesh3)
     amax = sh.pmax(torch.stack([g.abs().max() for _, g in
-                                flatten_with_paths(pod)]), "pod", mesh=mesh3)
+                                flatten_with_paths(pod)]), mesh3.axis_names,
+                   mesh=mesh3)
     quanta = 0.0
     for i, (path, g) in enumerate(flatten_with_paths(grads)):
         quantum = float(amax[i].clamp_min(1e-20)) / 127.0 / 2
-        quanta = max(quanta, float((g - p["one_grads"][path]).abs().max())
+        quanta = max(quanta, float((g - one_grads[path]).abs().max())
                      / quantum)
     out["pod_quanta"] = quanta
     opt = bundle.make_args(0)[1]
@@ -3983,6 +4047,207 @@ def _sharded_rank(rank, p):
     out["pod_step_record"] = rec3.summary()
     out["pod_step_staged"] = rec3.staged_bytes
     out["train_counts"] = _counts()
+    del bundle, m, params, opt, grads, pod, one_grads
+    lap("16d")
+    out.update(_tp_train_rank(p, dev))
+    lap("16g")
+    return out
+
+
+def _full_logits(model, logits):
+    """A rank's logits over the whole vocab: its block gathered over the
+    axes that split the vocab (``extras["vocab_axes"]``)."""
+    from repro_torch.distributed import sharding as sh
+    axes = model.extras.get("vocab_axes")
+    if not axes:
+        return logits
+    return sh.all_gather(logits, axes, 1, mesh=model.extras["mesh"])
+
+
+def _step_timer(srv, rec, steps):
+    """Wrap ``srv``'s decode step: each eager step's active slots, wall
+    seconds (the host clock around a synchronised step) and collectives
+    (calls and payload bytes by op, axes and dtype, and the bytes staged
+    through host memory, from the rank's record) go to ``steps``."""
+    import torch
+    decode = srv._decode_once
+
+    def step(params):
+        torch.cuda.synchronize()
+        calls, nbytes, staged = (dict(rec.calls), dict(rec.bytes),
+                                 rec.staged_bytes)
+        t0 = time.perf_counter()
+        decode(params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {f"{op} {'+'.join(axes)} {dt_}": (
+            n - calls.get((op, axes, dt_), 0),
+            rec.bytes[(op, axes, dt_)] - nbytes.get((op, axes, dt_), 0))
+            for (op, axes, dt_), n in rec.calls.items()
+            if n != calls.get((op, axes, dt_), 0)}
+        steps.append((len(srv._active), dt, moved,
+                      rec.staged_bytes - staged))
+    srv._decode_once = step
+
+
+def _busy_steps(steps):
+    """The median eager ms of the steps with the most slots busy, their
+    count, and the last such step's collectives and staged bytes."""
+    busy = max(n for n, *_ in steps)
+    full = [st for st in steps if st[0] == busy]
+    ms = sorted(t for _, t, _, _ in full)
+    return dict(ms=ms[len(ms) // 2] * 1e3, busy=busy, n=len(ms),
+                calls=full[-1][2], staged=full[-1][3],
+                bytes=sum(b for _, b in full[-1][2].values()))
+
+
+def _weight_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _tp_serve_rank(p, mesh, lap):
+    """Phases 16e-f on one rank: smollm-360m at full width, dense tensor
+    parallel over (1, 4) (16e), and served over (data 2, model 2) (16f)."""
+    import torch
+    from repro_torch.bridge import params_for_rank
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    out = {}
+    rec = mesh.world.record
+    with torch.no_grad():
+        model = build_model(p["sm_cfg"], mesh=mesh,
+                            rules=sh.serve_rules(False))
+        local = params_for_rank(p["sm_params"], model)
+        out["tp_bytes"] = _weight_bytes(local)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = _full_logits(model, model.prefill(
+            local, {"tokens": p["tp_toks"]})[0])
+        torch.cuda.synchronize()
+        out["tp_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tp_logits_rounds"] = _rel(logits, p["tp_logits"]) / 2.0 ** -8
+        out["tp_logits"] = logits.float().cpu().numpy()    # by value
+        out.update(_tp_served("tp", model, local, p, rec))
+        del model, local, logits
+        lap("16e")
+        # f: the same server over (data 2, model 2), 4 slots a data row
+        mesh22 = make_mesh((2, 2), ("data", "model"),
+                           device=mesh.world.device, share=True)
+        model = build_model(p["sm2_cfg"], mesh=mesh22,
+                            rules=sh.serve_rules(False))
+        local = params_for_rank(p["sm2_params"], model)
+        out.update(_tp_served("dp", model, local, p, mesh22.world.record))
+        del model, local
+    torch.cuda.empty_cache()
+    lap("16f")
+    return out
+
+
+def _tp_served(key, model, params, p, rec):
+    """16e-f's server on a rank: the streams, the engine report, the
+    kernels' launches, the rank's logits rows where its streams part from
+    the one device's (``p[key + "_want"]``), its slots, and each eager
+    decode step's ms and collectives, timed in the same run (the host
+    clock around a synchronised step)."""
+    steps, rows = [], {}
+    _zero_counts()
+    streams, report, srv = _sim_server(
+        model, params, p["tp_prompts"], rows=rows,
+        setup=lambda srv: _step_timer(srv, rec, steps))
+    out = {f"{key}_streams": streams, f"{key}_report": report,
+           f"{key}_counts": _counts(),
+           f"{key}_slots": (srv.layout.lo, srv.layout.per_row),
+           f"{key}_part_rows": {rid: rows[rid][k] for rid, k in _parting(
+               p[key + "_want"], streams).items() if rid in rows}}
+    out[f"{key}_step"] = _busy_steps(steps)
+    return out
+
+
+def _tp_train_rank(p, dev):
+    """Phase 16g on one rank: smollm-360m cut to ``POD_LAYERS`` layers on
+    (data 2, model 2) under ``train_rules`` (dense TP, ``fsdp`` over
+    data): the gradients against the one device's; AdamW and Adafactor on
+    the one device's gradients cut to this rank's blocks against the one
+    device's update of the same; then one step of each through
+    ``make_train_step``, timed."""
+    import torch
+    from repro_torch.bridge import params_for_rank
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.grad_compress import loss_and_grads
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    out = {}
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev, share=True)
+    rec = mesh.world.record
+    rules = sh.train_rules(False)
+    model = build_model(p["tr2_cfg"], mesh=mesh, rules=rules)
+    specs = model.extras["param_specs"]
+    out["tg_specs"] = {k: tuple(v) for k, v in specs.items()}
+    params = params_for_rank(p["tr2_params"], model)
+    batch = sh.rank_rows(p["batch"], mesh, rules["batch"])
+    _zero_counts()
+    rec.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(model.loss_fn, params, batch, mesh=mesh,
+                                 param_specs=specs)
+    torch.cuda.synchronize()
+    out["tg_grad_ms"] = (time.perf_counter() - t0) * 1e3
+    out["tg_record"] = rec.summary()
+    out["tg_loss"] = float(loss)
+    def block(tree):                   # this rank's block, on the host
+        return _tree_to(params_for_rank(tree, model), torch.device("cpu"))
+
+    one = params_for_rank(p["tr2_grads"], model)
+    want = dict(flatten_with_paths(one))
+    out["tg_grad_rounds"] = {
+        path: float((g - want[path]).abs().max()
+                    / (p["tr2_gmax"][path] * BF16_ULP))
+        for path, g in flatten_with_paths(grads)}
+    # a leaf past the limit: its distance from the fp32 step's gradient
+    # over the one device's (train_parity's anchor)
+    exact = dict(flatten_with_paths(params_for_rank(p["tr2_grads32"],
+                                                    model)))
+    out["tg_anchor"] = {
+        path: float((g - exact[path]).abs().max()
+                    / (want[path] - exact[path]).abs().max().clamp_min(
+                        1e-30))
+        for path, g in flatten_with_paths(grads)
+        if out["tg_grad_rounds"][path] > SHARD_GRAD_ROUNDINGS}
+    del grads, exact
+    # the optimizers alone, on the one device's gradients
+    new = opt.adamw_update(one, opt.adamw_init(params), params, lr=1e-3,
+                           specs=specs, mesh=mesh)
+    ref = p["tr2_adamw"]
+    out["tg_adamw_rel"] = max(
+        _opt_gap(new[0], block(ref[0])),
+        *(_opt_gap(a, block(b)) for a, b in zip(new[1][1:], ref[1][1:])))
+    p32 = tree_map(lambda t: t.float(), params)
+    new = opt.adafactor_update(one, opt.adafactor_init(p32), p32, lr=1e-3,
+                               specs=specs, mesh=mesh)
+    out["tg_adafactor_rel"] = _opt_gap(new[0], block(p["tr2_adafactor"]))
+    del new, one, p32
+    # one step of each optimizer through the training step
+    out["tg_steps"] = {}
+    for name in ("adamw", "adafactor"):
+        step, opt_init = make_train_step(model, TrainConfig(optimizer=name))
+        state = opt_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        out["tg_steps"][name] = ((time.perf_counter() - t0) * 1e3,
+                                 float(metrics["loss"]))
+        del new, state
+    out["tg_counts"] = _counts()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4005,6 +4270,7 @@ def sharded_phases(dev):
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt_lib
     from repro_torch.training.grad_compress import loss_and_grads
     from repro_torch.tree import flatten_with_paths
 
@@ -4060,6 +4326,21 @@ def sharded_phases(dev):
         prompt = torch.from_numpy(rng.integers(
             0, sm_cfg.vocab_size, (1, CP_PROMPT)).astype(np.int32)).to(dev)
         sm_logits, sm_cache = sm.prefill(sm_params, {"tokens": prompt})
+        # 16e-f: smollm-360m's one-device servers (eager, its logits rows
+        # recorded) at padded(4) and padded(2), over 8 prompts of 32-128
+        tp_prompts = [rng.integers(0, sm_cfg.vocab_size, n).astype(np.int32)
+                      for n in SHARD_PROMPTS]
+        tp_toks = torch.from_numpy(np.stack([q[:32] for q in tp_prompts])
+                                   ).to(dev)
+        tp_logits = sm.prefill(sm_params, {"tokens": tp_toks})[0]
+        tp_rows, dp_rows = {}, {}
+        tp_want, tp_report, _ = _sim_server(sm, sm_params, tp_prompts,
+                                            eager=True, rows=tp_rows)
+        sm2_cfg = ARCHITECTURES["smollm-360m"].padded_config(2)
+        sm2 = build_model(sm2_cfg, device=dev)
+        sm2_params = sm2.init(torch.Generator(device=dev).manual_seed(0))
+        dp_want, dp_report, _ = _sim_server(sm2, sm2_params, tp_prompts,
+                                            eager=True, rows=dp_rows)
     tr_cfg = dataclasses.replace(ARCHITECTURES["smollm-360m"],
                                  num_layers=POD_LAYERS)
     tr = build_model(tr_cfg, device=dev)
@@ -4068,6 +4349,21 @@ def sharded_phases(dev):
         0, tr_cfg.vocab_size, (POD_BATCH, POD_SEQ)).astype(np.int32)).to(dev)
         for k in ("tokens", "labels")}
     _, one_grads = loss_and_grads(tr.loss_fn, tr_params, batch)
+    # 16g: the same cut at padded(2), its gradients and both optimizers'
+    # updates of them
+    tr2_cfg = tr_cfg.padded_config(2)
+    tr2 = build_model(tr2_cfg, device=dev)
+    tr2_params = tr2.init(torch.Generator(device=dev).manual_seed(0))
+    _, tr2_grads = loss_and_grads(tr2.loss_fn, tr2_params, batch)
+    _, tr2_grads32 = loss_and_grads(
+        build_model(tr2_cfg, device=dev, dtype=torch.float32).loss_fn,
+        _tree_to(tr2_params, torch.float32), batch)
+    tr2_adamw = opt_lib.adamw_update(tr2_grads, opt_lib.adamw_init(tr2_params),
+                                     tr2_params, lr=1e-3)
+    p32 = _tree_to(tr2_params, torch.float32)
+    tr2_adafactor = opt_lib.adafactor_update(
+        tr2_grads, opt_lib.adafactor_init(p32), p32, lr=1e-3)[0]
+    del p32
     log(f"16 one-device references: {time.perf_counter() - t0:.1f} s")
     payload = dict(device="cuda", dbrx_cfg=cfg, dbrx_params=params,
                    toks=toks, streams=streams, route_prefill=route_prefill,
@@ -4076,16 +4372,35 @@ def sharded_phases(dev):
                    sm_params=sm_params, prompt=prompt, sm_logits=sm_logits,
                    sm_cache={k: sm_cache[k] for k in ("k", "v")},
                    tr_cfg=tr_cfg, tr_params=tr_params, batch=batch,
-                   one_grads=dict(flatten_with_paths(one_grads)))
+                   one_grads=dict(flatten_with_paths(one_grads)),
+                   tp_prompts=tp_prompts, tp_toks=tp_toks,
+                   tp_logits=tp_logits, tp_want=tp_want, dp_want=dp_want,
+                   sm2_cfg=sm2_cfg,
+                   sm2_params=sm2_params, tr2_cfg=tr2_cfg,
+                   tr2_params=tr2_params, tr2_grads=tr2_grads,
+                   tr2_grads32=tr2_grads32,
+                   tr2_gmax={k: float(g.abs().max()) for k, g in
+                             flatten_with_paths(tr2_grads)},
+                   tr2_adamw=(tr2_adamw[0], tr2_adamw[1]),
+                   tr2_adafactor=tr2_adafactor)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     ranks = run_ranks(_sharded_rank, SHARD_RANKS, payload, device="cuda",
                       share=True, timeout=600)
-    log(f"16b-d {SHARD_RANKS} gloo ranks sharing the card: "
-        f"{time.perf_counter() - t1:.1f} s")
+    log(f"16b-g {SHARD_RANKS} gloo ranks sharing the card: "
+        f"{time.perf_counter() - t1:.1f} s; seconds on each rank by phase "
+        f"{[{k: round(v, 1) for k, v in o['seconds'].items()} for o in ranks]}")
     del payload
     counts = dict(a["counts"])
+    anchor = None
+    for out in ranks:
+        if out["tp_logits_rounds"] > TP_ROUNDINGS:
+            if anchor is None:
+                anchor = _fp32_anchor(sm_cfg, sm_params, tp_toks, tp_logits)
+            out["tp_anchor"] = anchor(out["tp_logits"])
+    _log_tp(ranks, sm_cfg, sm2_cfg, tr2_cfg, tp_want, dp_want, tp_rows,
+            dp_rows)
     for r, out in enumerate(ranks):
         if out["experts"] != cfg.num_experts // SHARD_RANKS:
             raise AssertionError(f"16b rank {r}: {out['experts']} experts")
@@ -4122,6 +4437,15 @@ def sharded_phases(dev):
         if over_pod != {("all_gather", "int8"), ("pmax", "float32"),
                         ("psum", "float32")}:
             raise AssertionError(f"16d rank {r}: over pod {over_pod}")
+        _check_tp_rank(r, out, ranks[0], sm_params, tp_want, tp_rows,
+                       tp_report, dp_want, dp_rows, dp_report)
+        for key in ("tp_counts", "dp_counts"):
+            for k in ("rmsnorm", "decode_attention", "flash_attention"):
+                if not out[key][k]:
+                    raise AssertionError(f"16 rank {r}: {k} never launched "
+                                         f"({key})")
+            for k, n in out[key].items():
+                counts[k] += n
     # (request, step, the one device's gap between the two tokens, the
     # ranks' logits row's difference from it), each / its largest |logit|
     gaps = []
@@ -4150,7 +4474,8 @@ def sharded_phases(dev):
         f"of the one device's and its two tokens within twice that: "
         f"(request, step, gap, row difference) / largest |logit| {gaps}); "
         f"launches a rank {r0['ep_counts']}; "
-        f"eager ms a step with 8 slots busy {r0['ep_step_ms']:.3f} "
+        f"eager ms a step with the most slots busy (median) "
+        f"{r0['ep_step_ms']:.3f} "
         f"(host-staged gloo collectives on one card, not a multi-card "
         f"figure), collective payload {r0['ep_step_bytes']:.0f} B and "
         f"staged through host memory {r0['ep_step_staged']:.0f} B a step "
@@ -4170,6 +4495,160 @@ def sharded_phases(dev):
         f"{r0['pod_step_staged']} B)")
     log(f"sharded phases: {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def _tp_partings(label, want, got, one_rows, rank_rows, check=True):
+    """(request, step, gap, row difference) where a rank's stream ``got``
+    parts from the one device's ``want``, each / the largest |logit| of
+    the one device's row there (``one_rows``, its eager run's): the ranks'
+    row (``rank_rows``) may lie at most ``TP_ROW_TOL`` from the one
+    device's, and the one device's two tokens at most twice that apart
+    (16b's rule)."""
+    out = []
+    for rid, k in _parting(want, got).items():
+        one = one_rows[rid][k]
+        top = abs(one).max()
+        a, b = want[rid][k], got[rid][k]
+        gap = float((one[a] - one[b]) / top)
+        diff = float(abs(rank_rows[rid] - one).max() / top)
+        out.append((rid, k, gap, diff))
+        if check and (diff > TP_ROW_TOL or gap > 2 * diff):
+            raise AssertionError(f"{label} request {rid} parts at step {k}, "
+                                 f"not where the ranks' logits explain it: "
+                                 f"gap {gap}, row difference {diff}")
+    return out
+
+
+def _fp32_anchor(cfg, params, toks, logits):
+    """The prefill of ``toks`` in fp32 on the CPU's plain path (the
+    kernels take bf16): -> a function of the ranks' logits giving their
+    distance from it over the one device's bf16 ``logits``'."""
+    import torch
+    from repro_torch.models.api import build_model
+    m = build_model(cfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        exact = m.prefill(_tree_to(_tree_to(params, torch.device("cpu")),
+                                   torch.float32),
+                          {"tokens": toks.cpu()})[0]
+    exact = exact.numpy()
+    gap = float(abs(logits.float().cpu().numpy() - exact).max())
+    return lambda got: float(abs(got - exact).max()) / gap
+
+
+def _check_tp_rank(r, out, r0, sm_params, tp_want, tp_rows, tp_report,
+                   dp_want, dp_rows, dp_report):
+    """Phases 16e-g's checks on rank ``r``'s results."""
+    if (out["tp_logits_rounds"] > TP_ROUNDINGS
+            and out.get("tp_anchor", 0.0) > ANCHOR_RATIO):
+        raise AssertionError(f"16e rank {r}: prefill logits "
+                             f"{out['tp_logits_rounds']} bf16 roundings of "
+                             f"the largest off the one device's, and "
+                             f"{out['tp_anchor']} times as far from the fp32 "
+                             f"prefill as the one device's bf16 logits")
+    from repro_torch.tree import flatten_with_paths
+    kept = sum(t.numel() * t.element_size() for k, t in
+               flatten_with_paths(sm_params)
+               if k.endswith(("norm", "ln1", "ln2")))
+    want = (_weight_bytes(sm_params) - kept) // SHARD_RANKS + kept
+    if out["tp_bytes"] != want:
+        raise AssertionError(f"16e rank {r}: {out['tp_bytes']} B of weights, "
+                             f"not a quarter of the split ones and the norms "
+                             f"({want} B)")
+    for key, want_streams, rows, report, label in (
+            ("tp", tp_want, tp_rows, tp_report, "16e"),
+            ("dp", dp_want, dp_rows, dp_report, "16f")):
+        if out[f"{key}_streams"] != r0[f"{key}_streams"]:
+            raise AssertionError(f"{label} rank {r}: streams differ from "
+                                 f"rank 0's")
+        mine = {rid: row for rid, row in out[f"{key}_part_rows"].items()}
+        parted = _parting(want_streams, out[f"{key}_streams"])
+        _tp_partings(f"{label} rank {r}",
+                     {rid: want_streams[rid] for rid in mine},
+                     {rid: out[f"{key}_streams"][rid] for rid in mine},
+                     rows, mine)
+        if key == "tp" and set(mine) != set(parted):
+            raise AssertionError(f"16e rank {r}: rows of {sorted(mine)}, "
+                                 f"partings {sorted(parted)}")
+        rep = dict(out[f"{key}_report"])
+        rep.pop("mesh")
+        if rep != report:
+            raise AssertionError(f"{label} rank {r}: engine report {rep} vs "
+                                 f"the one device's {report}")
+    if out["dp_slots"] != (4 * (r // 2), 4):
+        raise AssertionError(f"16f rank {r}: slots {out['dp_slots']}")
+    for path, ratio in out["tg_anchor"].items():
+        if ratio > ANCHOR_RATIO:
+            raise AssertionError(
+                f"16g rank {r}: gradient {path} "
+                f"{out['tg_grad_rounds'][path]} bf16 ulps off the one "
+                f"device's (limit {SHARD_GRAD_ROUNDINGS}), and {ratio} "
+                f"times as far from the fp32 step's as the one device's "
+                f"(limit {ANCHOR_RATIO})")
+    for name in ("adamw", "adafactor"):
+        if out[f"tg_{name}_rel"] > OPT_RTOL:
+            raise AssertionError(f"16g rank {r}: {name} {out[f'tg_{name}_rel']}"
+                                 f" of the largest off the one device's")
+    if any(out["tg_counts"].values()):
+        raise AssertionError(f"16g rank {r}: training launched kernels "
+                             f"{out['tg_counts']}")
+
+
+def _log_tp(ranks, sm_cfg, sm2_cfg, tr2_cfg, tp_want, dp_want, tp_rows,
+            dp_rows):
+    r0 = ranks[0]
+    tp_part = _tp_partings("16e", tp_want, r0["tp_streams"], tp_rows,
+                           r0["tp_part_rows"], check=False)
+    dp_rank_rows = {}
+    for o in ranks:
+        dp_rank_rows.update(o["dp_part_rows"])
+    dp_part = _tp_partings("16f", dp_want, r0["dp_streams"], dp_rows,
+                           dp_rank_rows, check=False)
+    log(f"16e smollm-360m, {sm_cfg.num_layers} layers at padded("
+        f"{SHARD_RANKS}) ({sm_cfg.num_heads} / {sm_cfg.num_kv_heads} heads, "
+        f"{sm_cfg.num_heads // SHARD_RANKS} / "
+        f"{sm_cfg.num_kv_heads // SHARD_RANKS} a rank), dense tensor "
+        f"parallel over (1, {SHARD_RANKS}): prefill logits within "
+        f"{max(o['tp_logits_rounds'] for o in ranks)} bf16 roundings of the "
+        f"largest (limit {TP_ROUNDINGS}, or past it at most {ANCHOR_RATIO} "
+        f"times as far from an fp32 prefill as the one device: "
+        f"{max(o.get('tp_anchor', 0.0) for o in ranks)}), "
+        f"{r0['tp_prefill_ms']:.1f} ms "
+        f"(8 x 32 tokens, rank 0); {r0['tp_bytes']} B of weights a rank; "
+        f"{len(tp_want) - len(tp_part)} of {len(tp_want)} greedy streams "
+        f"equal to the one device's (the rest part where the ranks' row "
+        f"lies within {TP_ROW_TOL} of the one device's and its two tokens "
+        f"within twice that: (request, step, gap, row difference) / "
+        f"largest |logit| {tp_part}), the engine report its own but the "
+        f"mesh; launches a rank {r0['tp_counts']}; eager ms a step with "
+        f"{r0['tp_step']['busy']} slots busy {r0['tp_step']['ms']:.3f} "
+        f"(median of {r0['tp_step']['n']}; host-staged gloo collectives on "
+        f"one card, not a multi-card figure), collectives a step (calls, "
+        f"payload B) {r0['tp_step']['calls']}, staged "
+        f"{r0['tp_step']['staged']:.0f} B")
+    log(f"16f smollm-360m at padded(2) ({sm2_cfg.num_heads} / "
+        f"{sm2_cfg.num_kv_heads} heads) served over (data 2, model 2), 4 "
+        f"slots a data row: {len(dp_want) - len(dp_part)} of {len(dp_want)} "
+        f"greedy streams equal to the one device's (the rest part as in "
+        f"16e: {dp_part}), the engine report its own but the mesh; "
+        f"launches a rank {r0['dp_counts']}; eager ms a step with "
+        f"{r0['dp_step']['busy']} slots busy {r0['dp_step']['ms']:.3f} "
+        f"(median of {r0['dp_step']['n']}), collectives a step "
+        f"{r0['dp_step']['calls']}, staged {r0['dp_step']['staged']:.0f} B")
+    steps = {k: (f"{v[0]:.1f} ms", v[1]) for k, v in r0["tg_steps"].items()}
+    log(f"16g smollm-360m cut to {tr2_cfg.num_layers} layers at padded(2) on "
+        f"(data 2, model 2), train_rules (dense TP, fsdp over data; e.g. "
+        f"layers/attn/wq {r0['tg_specs']['layers/attn/wq']}), batch "
+        f"{POD_BATCH} x {POD_SEQ}: gradients within "
+        f"{max(max(o['tg_grad_rounds'].values()) for o in ranks):.3f} bf16 "
+        f"ulps of each leaf's largest one-device value (limit "
+        f"{SHARD_GRAD_ROUNDINGS}; past it, ratio of the distances from the "
+        f"fp32 step's, limit {ANCHOR_RATIO}: "
+        f"{[o['tg_anchor'] for o in ranks]}); on the one device's gradients AdamW "
+        f"within {max(o['tg_adamw_rel'] for o in ranks):.3g} and Adafactor "
+        f"within {max(o['tg_adafactor_rel'] for o in ranks):.3g} of its "
+        f"update (limit {OPT_RTOL}); loss and grads {r0['tg_grad_ms']:.1f} "
+        f"ms, a step (ms, loss) {steps}; collectives of the loss and grads "
+        f"{r0['tg_record']}")
 
 
 def main() -> int:

@@ -292,16 +292,21 @@ def _rank_main(fn, rank, nranks, init_method, device, share, args, out):
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, nranks: int, *args, device="cpu",
+def run_ranks(fn: Callable, nranks: int, *args, device="cuda",
               share: bool = False, timeout: float = 120.0,
               tmpdir: Optional[str] = None) -> List[Any]:
     """Run ``fn(rank, *args)`` in ``nranks`` spawned processes joined in one
     world (``init_world``; a ``file://`` rendezvous in ``tmpdir``, so
     worlds started side by side never meet) -> each rank's return value,
-    by rank. ``fn`` and ``args`` are pickled (CUDA tensors travel as
-    handles to the same memory). A rank that raises or dies fails the
-    call with its traceback; ranks still running ``timeout`` seconds after
-    the start, or a few seconds after another rank failed, are killed."""
+    by rank. The ranks run on the card unless ``device`` asks for the CPU
+    (``"cuda"`` raises without one, before a rank starts). ``fn`` and
+    ``args`` are pickled (CUDA tensors travel as handles to the same
+    memory). A rank that raises or dies fails the call with its
+    traceback; ranks still running ``timeout`` seconds after the start, or
+    a few seconds after another rank failed, are killed."""
+    from repro_torch.models.api import resolve_device
+
+    resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory(dir=tmpdir) as d:

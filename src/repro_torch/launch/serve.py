@@ -10,9 +10,11 @@ reference's PRNG key.
 Under ``python -m torch.distributed.run --nproc-per-node N -m
 repro_torch.launch.serve ...`` each process is one rank on its own card,
 and the server runs on the elastic mesh over the world (``(1, N)`` up to
-16 ranks), as the reference's launcher serves on ``make_elastic_mesh``:
-the moe experts split over ``model``, every rank serving every slot.
-Rank 0 prints. Without a world, one device, as before.
+16 ranks, ``(N / 16, 16)`` past that), as the reference's launcher serves
+on ``make_elastic_mesh``: attention, FFN, embedding and head (and the
+moe experts) split over ``model``, the slots over ``data`` (``--slots``
+rounded up to a multiple of it). Rank 0 prints. Without a world, one
+device, as before.
 
 As in the reference, requests carry tokens only: an encoder-decoder
 (seamless-m4t-medium) has no frames to prefill and fails with
@@ -60,7 +62,8 @@ def main(argv: Optional[List[str]] = None) -> LMServer:
     model = build_model(cfg, device=dev, mesh=mesh,
                         rules=serve_rules(False) if mesh else None)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    server = LMServer(model, device=dev, slots=args.slots,
+    rows = mesh.shape["data"] if mesh else 1
+    server = LMServer(model, device=dev, slots=-(-args.slots // rows) * rows,
                       max_len=args.max_len, temperature=args.temperature)
     rng = np.random.default_rng(0)
     say(f"serving {cfg.name} on {dev}"

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import softmax_scale
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
@@ -41,14 +42,18 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 class Spec(NamedTuple):
     """Declarative parameter: shape, init kind, dtype (``None``: the
-    model's working dtype) and, where a mesh may shard it, its logical
-    axes (``None``: replicated on every rank)."""
+    model's working dtype), where a mesh may shard it its logical axes
+    (``None``: replicated on every rank; the reference's names), and how a
+    ``normal`` leaf is drawn: ``"leaf"``, the whole leaf from the model's
+    generator, or ``"matrix"`` (the experts), each matrix from a seed of
+    its own (:func:`_draw_by_matrix`)."""
 
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
     fan_in: Optional[int] = None
     dtype: Optional[torch.dtype] = None
     axes: Optional[Tuple[Optional[str], ...]] = None
+    draw: str = "leaf"        # leaf | matrix
 
 
 def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype,
@@ -64,17 +69,46 @@ def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype,
     fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
                           else spec.shape[-1])
     scale = 1.0 / math.sqrt(max(1, fan))
-    if spec.axes is None:
-        x = torch.randn(spec.shape, generator=gen, device=device,
-                        dtype=torch.float32)
+    if spec.draw == "matrix":
+        return _draw_by_matrix(gen, spec.shape, block, scale, device, dtype)
+    if shape != tuple(spec.shape) and torch.device(device).type == "cpu":
+        return _draw_in_order(gen, spec.shape, block, scale, dtype)
+    x = torch.randn(spec.shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (x * scale)[block].to(dtype)
+
+
+def _draw_in_order(gen: torch.Generator, shape, block, scale: float,
+                   dtype) -> torch.Tensor:
+    """This rank's block of ``torch.randn(shape, generator=gen)`` on the
+    CPU, drawn one matrix (the last two dims) at a time, so a rank holds
+    at most one fp32 matrix of a leaf it keeps a block of. The CPU fills a
+    float tensor of n >= 16 values from n uniforms in groups of 16, its
+    last 16 values from 16 more where 16 does not divide n, so draws of
+    consecutive pieces give the whole draw's values wherever every piece
+    but the last is a multiple of 16 long and the last at least 16. Where
+    that fails the whole leaf is drawn. The card's generator places its
+    values by the whole leaf's size, so a rank there draws the whole leaf
+    (one at a time) and keeps its block."""
+    m = int(np.prod(shape[-2:]))
+    lead = tuple(shape[:-2])
+    if len(shape) < 2 or (m % 16 and int(np.prod(lead)) > 1) or m < 16:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32)
         return (x * scale)[block].to(dtype)
-    return _draw_by_matrix(gen, spec.shape, block, scale, device, dtype)
+    out = torch.empty(tuple(s.stop - s.start for s in block), dtype=dtype)
+    keep = [range(s.start, s.stop) for s in block[:-2]]
+    for idx in itertools.product(*(range(n) for n in lead)):
+        x = torch.randn(shape[-2:], generator=gen, dtype=torch.float32)
+        if all(i in r for i, r in zip(idx, keep)):
+            at = tuple(i - s.start for i, s in zip(idx, block))
+            out[at] = (x[block[-2:]] * scale).to(dtype)
+    return out
 
 
 def _draw_by_matrix(gen: torch.Generator, shape, block, scale: float,
                     device, dtype) -> torch.Tensor:
-    """A leaf a mesh may split (its Spec has ``axes``), drawn one matrix
-    (its last two dims) at a time, each from a seed of its own: one draw
+    """A leaf of ``draw="matrix"`` (the experts), drawn one matrix (its
+    last two dims) at a time, each from a seed of its own: one draw
     of ``gen`` plus the matrix's index. A rank draws only the matrices its
     ``block`` meets and keeps their block, so its leaf is that block of
     the one-device draw and it holds no more than one fp32 matrix beyond
@@ -125,7 +159,8 @@ def stacked(specs, num: int):
     if isinstance(specs, Spec):
         return Spec((num,) + specs.shape, specs.init, specs.fan_in,
                     specs.dtype,
-                    None if specs.axes is None else (None,) + specs.axes)
+                    None if specs.axes is None else (None,) + specs.axes,
+                    specs.draw)
     return {k: stacked(v, num) for k, v in specs.items()}
 
 
@@ -144,30 +179,36 @@ def sharded_leaves(specs, prefix: str = "") -> Dict[str, Spec]:
 def attn_specs(d_model: int, nq: int, nkv: int, hd: int,
                bias: bool) -> Dict[str, Spec]:
     s = {
-        "wq": Spec((d_model, nq * hd), fan_in=d_model),
-        "wk": Spec((d_model, nkv * hd), fan_in=d_model),
-        "wv": Spec((d_model, nkv * hd), fan_in=d_model),
-        "wo": Spec((nq * hd, d_model), fan_in=nq * hd),
+        "wq": Spec((d_model, nq * hd), fan_in=d_model,
+                   axes=("fsdp", "heads")),
+        "wk": Spec((d_model, nkv * hd), fan_in=d_model,
+                   axes=("fsdp", "kv_heads")),
+        "wv": Spec((d_model, nkv * hd), fan_in=d_model,
+                   axes=("fsdp", "kv_heads")),
+        "wo": Spec((nq * hd, d_model), fan_in=nq * hd,
+                   axes=("heads", "fsdp")),
     }
     if bias:
-        s["bq"] = Spec((nq * hd,), "zeros")
-        s["bk"] = Spec((nkv * hd,), "zeros")
-        s["bv"] = Spec((nkv * hd,), "zeros")
+        s["bq"] = Spec((nq * hd,), "zeros", axes=("heads",))
+        s["bk"] = Spec((nkv * hd,), "zeros", axes=("kv_heads",))
+        s["bv"] = Spec((nkv * hd,), "zeros", axes=("kv_heads",))
     return s
 
 
 def glu_specs(d_model: int, d_ff: int) -> Dict[str, Spec]:
     return {
-        "wi": Spec((d_model, d_ff), fan_in=d_model),
-        "wg": Spec((d_model, d_ff), fan_in=d_model),
-        "wo": Spec((d_ff, d_model), fan_in=d_ff),
+        "wi": Spec((d_model, d_ff), fan_in=d_model, axes=("fsdp", "ffn")),
+        "wg": Spec((d_model, d_ff), fan_in=d_model, axes=("fsdp", "ffn")),
+        "wo": Spec((d_ff, d_model), fan_in=d_ff, axes=("ffn", "fsdp")),
     }
 
 
 def embed_specs(vocab: int, d_model: int) -> Dict[str, Spec]:
     return {
-        "embedding": Spec((vocab, d_model), fan_in=1),
-        "head": Spec((d_model, vocab), fan_in=d_model),
+        "embedding": Spec((vocab, d_model), fan_in=1,
+                          axes=("vocab", "fsdp")),
+        "head": Spec((d_model, vocab), fan_in=d_model,
+                     axes=("fsdp", "vocab")),
         "final_norm": Spec((d_model,), "ones"),
     }
 
@@ -286,29 +327,87 @@ def silu(z: torch.Tensor) -> torch.Tensor:
     return z * torch.reciprocal(1 + torch.exp(-z))
 
 
-def glu_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def glu_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, axes=(), *,
+              mesh=None) -> torch.Tensor:
+    """The GLU FFN; where ``axes`` split ``d_ff``, ``wi``/``wg`` hold this
+    rank's columns and ``wo`` its rows (:func:`row_parallel`)."""
+    h = silu(x @ p["wg"]) * (x @ p["wi"])
+    return row_parallel(h, p["wo"], axes, mesh=mesh)
 
 
-def embed_tokens(p: Dict[str, torch.Tensor],
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["embedding"])
+def row_parallel(x: torch.Tensor, w: torch.Tensor, axes, *,
+                 mesh) -> torch.Tensor:
+    """``x @ w`` where ``x``'s last dim and ``w``'s rows are split over the
+    mesh ``axes`` (the attention output over heads, the GLU's down
+    projection over ``d_ff``): each rank's partial product in fp32, summed
+    over ``axes`` in fp32 and rounded to the working dtype once, as one
+    device rounds the whole product once. Chosen against the reference's
+    own TP run (granite-8b reduced on (2, 4), ``tests/
+    test_torch_distributed.py``): these logits equal its bit for bit, and
+    the one device's; bf16 partials summed in bf16 (tp + 1 roundings)
+    landed 1.04 bf16 roundings of the largest logit from both."""
+    if not axes:
+        return x @ w
+    return sh.psum(x.float() @ w.float(), axes, mesh=mesh).to(x.dtype)
+
+
+def embed_tokens(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 axes=(), *, mesh=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``. Where ``axes`` split the vocab,
+    each rank looks up the tokens in its block and zeroes the rest, and the
+    ranks' rows are summed over ``axes``: one value and exact zeros, so
+    the sum is the lookup itself."""
+    emb = p["embedding"]
+    if not axes:
+        return F.embedding(tokens, emb)
+    n = emb.shape[0]
+    local = tokens.long() - sh.axis_index(axes, mesh=mesh) * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    x = F.embedding(local.clamp(0, n - 1), emb)
+    return sh.psum(torch.where(inside, x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device)),
+                   axes, mesh=mesh)
 
 
 def lm_head(p: Dict[str, torch.Tensor], x: torch.Tensor,
             norm_eps: float) -> torch.Tensor:
+    """Logits over the vocab columns ``head`` holds: this rank's block of
+    them where a mesh splits the vocab."""
     return rmsnorm(x, p["final_norm"], norm_eps) @ p["head"]
+
+
+def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor, axes, mesh):
+    """(logsumexp over the vocab, the gold logit) of fp32 ``logits``
+    ``[..., V]``, or of this rank's vocab block of them where ``axes``
+    split it: the ranks' largest value (``pmax``, held constant), the
+    shifted exp-sums summed over ``axes``, and the gold logit from the rank
+    that holds it (a masked sum)."""
+    if not axes:
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return torch.logsumexp(logits, -1), gold
+    n = logits.shape[-1]
+    top = sh.pmax(logits.detach().amax(-1), axes, mesh=mesh)
+    total = sh.psum(torch.exp(logits - top[..., None]).sum(-1), axes,
+                    mesh=mesh)
+    local = labels.long() - sh.axis_index(axes, mesh=mesh) * n
+    inside = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = sh.psum(torch.where(inside, gold, torch.zeros_like(gold)), axes,
+                   mesh=mesh)
+    return top + torch.log(total), gold
 
 
 def chunked_loss(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  labels: torch.Tensor, norm_eps: float,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, axes=(), *, mesh=None) -> torch.Tensor:
     """Mean cross-entropy over the vocab, chunked over the sequence: the
     final RMSNorm (plain), then per chunk of ``min(chunk, S)`` positions
     the fp32 logsumexp minus the gold logit, summed in fp32 and divided by
     ``B * S``. The forward makes one chunk's ``[B, chunk, V]`` logits at a
     time; autograd keeps each chunk's for the backward, as the reference's
-    scan keeps its residuals. x: [B,S,d]; labels: [B,S]."""
+    scan keeps its residuals. x: [B,S,d]; labels: [B,S]. Where ``axes``
+    split the vocab, ``head`` holds this rank's columns and the logsumexp
+    and gold logit are taken over the ranks (:func:`_lse_and_gold`)."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -318,8 +417,9 @@ def chunked_loss(p: Dict[str, torch.Tensor], x: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, chunk):
         logits = (x[:, lo:lo + chunk] @ p["head"]).float()
-        gold = logits.gather(-1, labels[:, lo:lo + chunk, None].long())
-        total = total + torch.sum(torch.logsumexp(logits, -1) - gold[..., 0])
+        lse, gold = _lse_and_gold(logits, labels[:, lo:lo + chunk], axes,
+                                  mesh)
+        total = total + torch.sum(lse - gold)
     return total / (B * S)
 
 

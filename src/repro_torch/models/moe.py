@@ -66,11 +66,11 @@ def moe_specs(d_model: int, d_ff: int, num_experts: int) -> Dict[str, Spec]:
         "router": Spec((d_model, num_experts), fan_in=d_model,
                        dtype=torch.float32),
         "wi": Spec((num_experts, d_model, d_ff), fan_in=d_model,
-                   axes=("expert", "fsdp", "expert_ffn")),
+                   axes=("expert", "fsdp", "expert_ffn"), draw="matrix"),
         "wg": Spec((num_experts, d_model, d_ff), fan_in=d_model,
-                   axes=("expert", "fsdp", "expert_ffn")),
+                   axes=("expert", "fsdp", "expert_ffn"), draw="matrix"),
         "wo": Spec((num_experts, d_ff, d_model), fan_in=d_ff,
-                   axes=("expert", "expert_ffn", "fsdp")),
+                   axes=("expert", "expert_ffn", "fsdp"), draw="matrix"),
     }
 
 

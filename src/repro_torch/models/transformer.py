@@ -52,7 +52,8 @@ from repro_torch.models.common import (
     Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
     attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
     embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
-    rmsnorm, rope, rope_tables, sharded_leaves, stacked, unstack, with_remat,
+    rmsnorm, rope, rope_tables, row_parallel, sharded_leaves, stacked,
+    unstack, with_remat,
 )
 
 
@@ -97,17 +98,23 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                                    cfg.moe_capacity_factor, d, cfg.d_ff)
     place = _Placement(mesh, rules, specs)
     cp = place.cp
+    # this rank's heads, and the mesh axes the dense leaves stay split over
+    # once each layer has gathered what it gathers
+    heads_ax, kv_ax, ffn_ax, vocab_ax = (place.split[k] for k in (
+        "heads", "kv_heads", "ffn", "vocab"))
+    nq_l = nq // place.size(heads_ax)
+    nkv_l = nkv // place.size(kv_ax)
 
     def init(gen: torch.Generator):
         """Seeded parameters on the model's device (``gen`` lives there):
-        on a mesh, this rank's blocks of the one-device draw, drawn
-        without the rest (``common.init_tree``)."""
+        on a mesh, this rank's blocks of the one-device draw
+        (``common.init_tree``)."""
         return init_tree(gen, specs, device, dtype, place.blocks)
 
     def _ffn(lp, h, need_aux: bool = False):
         """(FFN output, moe load-balancing term or 0)."""
         if moe_dims is None:
-            return glu_apply(lp["ffn"], h), 0.0
+            return glu_apply(lp["ffn"], h, ffn_ax, mesh=mesh), 0.0
         if mesh is None:
             return moe_lib.moe_apply(lp["moe"], h, moe_dims)
         if cp:          # the experts serve the whole sequence's tokens
@@ -123,25 +130,36 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     def _attn_out_ffn(x, o, lp):
         """Residual add of the attention output, second norm, FFN."""
-        x, h2 = add_rmsnorm(x, o @ lp["attn"]["wo"], lp["ln2"], eps)
+        x, h2 = add_rmsnorm(x, row_parallel(o, lp["attn"]["wo"], heads_ax,
+                                            mesh=mesh), lp["ln2"], eps)
         return x + _ffn(lp, h2)[0]
 
-    def _embed_input(params, batch):
-        x = embed_tokens(params["embed"], batch["tokens"])
+    def _embed_input(embed, batch):
+        x = embed_tokens(embed, batch["tokens"], vocab_ax, mesh=mesh)
         if cfg.frontend == "vision" and "prefix_embeddings" in batch:
             pre = batch["prefix_embeddings"].to(x.dtype)
             x = torch.cat([pre, x], dim=1)
         return x
 
+    def _layers(params):
+        """Each layer's leaves as it uses them: the views of its slice of
+        the stack, the dense ones gathered where the layout says
+        (``_Placement.gathered``)."""
+        for lp in unstack(params["layers"], L):
+            yield place.gathered(lp, "layers", layer=True)
+
     # ---------------- train ----------------
     def layer_train(x, lp, tables, window: int):
         """One layer of the training forward -> (x, moe aux term)."""
         B, S, _ = x.shape
+        lp = place.gathered(lp, "layers", layer=True)
         h = rmsnorm(x, lp["ln1"], eps, train=True)
-        q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+        q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
         q, k = rope(q, tables), rope(k, tables)
         o = attention_train(q, k, v, causal=True, window=window)
-        x, h2 = add_rmsnorm(x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
+        x, h2 = add_rmsnorm(x, row_parallel(o.reshape(B, S, nq_l * hd),
+                                            lp["attn"]["wo"], heads_ax,
+                                            mesh=mesh),
                             lp["ln2"], eps, train=True)
         y, aux = _ffn(lp, h2, need_aux=True)
         return x + y, aux
@@ -152,6 +170,8 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         tables = rope_tables(torch.arange(x.shape[1], device=x.device)[None],
                              hd, cfg.rope_theta)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # the gathers run inside each layer's checkpoint, so the backward
+        # pass gathers again where it recomputes the layer
         for i, lp in enumerate(unstack(params["layers"], L)):
             x, a = layer(x, lp, tables, windows[i])
             aux = aux + a
@@ -161,24 +181,28 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         """batch: ``tokens``, ``labels`` [B,S] (vlm: optional
         ``prefix_embeddings`` [B,P,d] ahead of the tokens) -> the mean
         cross-entropy over the text positions (+ 0.01 * moe aux), fp32."""
-        x, aux = _backbone_train(params, _embed_input(params, batch))
+        embed = place.gathered(params["embed"], "embed")
+        x, aux = _backbone_train(params, _embed_input(embed, batch))
         n_text = batch["tokens"].shape[1]
-        ce = chunked_loss(params["embed"], x[:, -n_text:], batch["labels"],
-                          eps)
+        ce = chunked_loss(embed, x[:, -n_text:], batch["labels"], eps,
+                          axes=vocab_ax, mesh=mesh)
         return ce + 0.01 * aux
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
         (right-padded prompts); vlm: optional ``prefix_embeddings`` [B,P,d]
-        ahead of the tokens. Returns last-token logits [B,V] and a cache
+        ahead of the tokens. Returns last-token logits [B,V] (this rank's
+        vocab block where ``extras["vocab_axes"]`` split it) and a cache
         padded to ``max_len`` positions; rows past a prompt's length hold
         the padding's K/V, as in the reference."""
-        x = _embed_input(params, batch)
+        embed = place.gathered(params["embed"], "embed")
+        x = _embed_input(embed, batch)
         B, S, _ = x.shape
         Smax = max_len or S
         vl = batch.get("lengths")
-        ks = torch.zeros((L, B, Smax, nkv, hd), dtype=x.dtype, device=device)
+        ks = torch.zeros((L, B, Smax, nkv_l, hd), dtype=x.dtype,
+                         device=device)
         vs = torch.zeros_like(ks)
         lo, n = 0, S                     # this rank's rows of the sequence
         if cp:
@@ -191,9 +215,9 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
             x = x[:, lo:lo + n].contiguous()
         tables = rope_tables(torch.arange(lo, lo + n, device=device)[None, :],
                              hd, cfg.rope_theta)
-        for i, lp in enumerate(unstack(params["layers"], L)):
+        for i, lp in enumerate(_layers(params)):
             h = rmsnorm(x, lp["ln1"], eps)
-            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
             q, k = rope(q, tables), rope(k, tables)
             if cp:      # K/V gathered once per layer (ref _cp_attention)
                 k = sh.all_gather(k, "model", 1, mesh=mesh)
@@ -201,14 +225,14 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
             o = attention_prefill(q, k, v, causal=True, window=windows[i],
                                   q_block=min(q_block, n) if cp else q_block,
                                   k_block=k_block, q_offset=lo, kv_valid=vl)
-            x = _attn_out_ffn(x, o.reshape(B, n, nq * hd), lp)
+            x = _attn_out_ffn(x, o.reshape(B, n, nq_l * hd), lp)
             ks[i, :, :S] = k
             vs[i, :, :S] = v
         if cp:
             x = sh.all_gather(x, "model", 1, mesh=mesh)
         x_last = (x[:, -1:].contiguous() if vl is None
                   else last_valid_slice(x, vl))
-        logits = lm_head(params["embed"], x_last, eps)[:, 0]
+        logits = lm_head(embed, x_last, eps)[:, 0]
         lengths = (torch.full((B,), S, dtype=torch.int32, device=device)
                    if vl is None else vl.to(torch.int32))
         return logits, {"k": ks, "v": vs, "lengths": lengths}
@@ -217,25 +241,27 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     def decode_step(params, cache, tokens, lengths):
         """tokens: [B,1]; lengths: [B] int32 current context length per
         sample. Writes the new K/V rows into ``cache`` in place."""
-        x = embed_tokens(params["embed"], tokens)
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, tokens, vocab_ax, mesh=mesh)
         B = x.shape[0]
         tables = rope_tables(lengths[:, None], hd, cfg.rope_theta)
         valid = lengths + 1
         k_layers = torch.unbind(cache["k"], 0)
         v_layers = torch.unbind(cache["v"], 0)
-        for i, lp in enumerate(unstack(params["layers"], L)):
+        for i, lp in enumerate(_layers(params)):
             h = rmsnorm(x, lp["ln1"], eps)
-            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
             q, k = rope(q, tables), rope(k, tables)
             cache_update(k_layers[i], v_layers[i], k, v, lengths)
             o = attention_decode(q, k_layers[i], v_layers[i], valid,
                                  window=windows[i])
-            x = _attn_out_ffn(x, o.reshape(B, 1, nq * hd), lp)
-        logits = lm_head(params["embed"], x, eps)[:, 0]
+            x = _attn_out_ffn(x, o.reshape(B, 1, nq_l * hd), lp)
+        logits = lm_head(embed, x, eps)[:, 0]
         return logits, {"k": cache["k"], "v": cache["v"], "lengths": valid}
 
     def init_cache(batch: int, max_len: int):
-        shape = (L, batch, max_len, nkv, hd)
+        """This rank's kv heads of every slot's cache."""
+        shape = (L, batch, max_len, nkv_l, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device),
                 "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -253,8 +279,12 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 class _Placement:
     """Where a model's tensors live on a mesh: the rules (``serve_rules``
     when none are given), the batch axes the mesh has, whether prefill is
-    context parallel, and each sharded leaf's :class:`PartitionSpec` and
-    this rank's block of it."""
+    context parallel, each sharded leaf's :class:`PartitionSpec` and this
+    rank's block of it, which dims of the dense leaves each layer gathers
+    before use (their ``fsdp`` dim; under context parallelism every split
+    dim, as the reference gathers its weights per layer there), and the
+    mesh axes that split the heads, kv heads, ``d_ff`` and vocab of what
+    the layers then compute with."""
 
     def __init__(self, mesh, rules, specs):
         self.mesh = mesh
@@ -264,19 +294,59 @@ class _Placement:
         self.batch_axes = tuple(a for a in sh.norm_axes(self.rules.get(
             "batch")) if mesh is not None and a in mesh.shape)
         self.cp = mesh is not None and self.rules.get("seq") == "model"
-        self.param_specs, self.blocks = {}, {}
-        if mesh is not None:
-            ctx = sh.ShardingContext(mesh, self.rules)
-            for path, leaf in sharded_leaves(specs).items():
-                self.param_specs[path] = ctx.spec(leaf.axes)
-                self.blocks[path] = sh.block_slices(
-                    leaf.shape, self.param_specs[path], mesh)
+        self.param_specs, self.blocks, self.gathers = {}, {}, {}
+        self.split = dict.fromkeys(("heads", "kv_heads", "ffn", "vocab"), ())
+        if mesh is None:
+            return
+        ctx = sh.ShardingContext(mesh, self.rules)
+        for path, leaf in sharded_leaves(specs).items():
+            spec = ctx.spec(leaf.axes)
+            if not spec:
+                continue
+            self.param_specs[path] = spec
+            self.blocks[path] = sh.block_slices(leaf.shape, spec, mesh)
+            if "/moe/" in path:        # the experts gather their own
+                continue
+            # axes of one rank move nothing: one device's ops run there
+            dims = tuple(tuple(a for a in sh.norm_axes(spec[i])
+                               if mesh.shape[a] > 1) if i < len(spec) else ()
+                         for i in range(len(leaf.shape)))
+            gather = tuple(ax if self.cp or name == "fsdp" else ()
+                           for ax, name in zip(dims, leaf.axes))
+            if any(gather):
+                self.gathers[path] = gather
+            for ax, g, name in zip(dims, gather, leaf.axes):
+                if name in self.split and ax and not g:
+                    self.split[name] = ax
+
+    def size(self, axes) -> int:
+        return self.mesh.size(axes) if axes else 1
+
+    def gathered(self, tree, prefix: str, layer: bool = False):
+        """``tree`` (the leaves under ``prefix``; ``layer``: one layer's
+        views of the stacked leaves) with each dense leaf gathered over the
+        axes ``gathers`` names for it: whole along those dims."""
+        if not self.gathers:
+            return tree
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = self.gathered(v, path, layer)
+                continue
+            for i, axes in enumerate(self.gathers.get(path, ())[
+                    1 if layer else 0:]):
+                for a in reversed(axes):
+                    v = sh.all_gather(v, a, i, mesh=self.mesh)
+            out[k] = v
+        return out
 
     def extras(self):
         if self.mesh is None:
             return {}
         return {"mesh": self.mesh, "rules": self.rules,
-                "param_specs": self.param_specs}
+                "param_specs": self.param_specs,
+                "vocab_axes": self.split["vocab"]}
 
 
 def _axis(rules, name):

@@ -36,17 +36,28 @@ the sampled tokens plus one device read per active slot on the host. It
 runs eagerly on either device.
 
 On a mesh (a model built with ``build_model(mesh=)`` over a
-``torch.distributed`` world of ``data = 1``) every rank runs the same
-server over every slot, and the model's moe layers run expert parallel
-with the tokens replicated over ``model``. The ranks' collectives pair up
-only while their host decisions agree, so the measured prefill time that
-feeds AIMD is the ranks' max (one all-reduce a prefill, where the engine
-waits for the prefill anyway), and the sampled tokens are broadcast from
-the first rank inside the step, before the one packed host copy. Under
-NCCL the decode step is captured with its collectives inside; under gloo
-(host-side, so not capturable) it runs eagerly, and
-``engine.decode.graph`` says which. ``engine.mesh`` names the mesh. A
-server over a ``data`` axis is not ported yet.
+``torch.distributed`` world) every rank runs the same server, host side,
+over every slot: the same queue, admission and AIMD decisions, the same
+slot state vectors. The slots are split over the mesh's axes other than
+``model`` (``data``): each data row holds ``slots / data`` of them and
+their cache rows, prefills the admitted requests that go to its slots,
+and decodes its slots; within a data row the model runs tensor parallel
+over ``model`` (its logits a block of the vocab, gathered over ``model``
+before sampling, so the sampler sees the whole vocab as one device's
+does) and its moe layers expert parallel. The sampler draws the noise of
+the whole batch on every rank, as one device draws it, and each data row
+takes its rows', so a stream is the one device's at any temperature; the
+rows' tokens are summed into one vector over ``data`` (each row's tokens
+and zeros) and broadcast from the first rank, inside the step and before
+the one packed host copy. The ranks' collectives pair up only while their
+host decisions agree, so the measured prefill time that feeds AIMD is the
+ranks' max (one all-reduce a prefill, where the engine waits for the
+prefill anyway). Under NCCL the decode step is captured with its
+collectives inside; under gloo (host-side, so not capturable) it runs
+eagerly, and ``engine.decode.graph`` says which. ``engine.mesh`` names the
+mesh. Over a ``data`` axis the model must not itself communicate over it
+(no ``fsdp`` or ``expert_ffn`` there: each data row prefills its own
+requests, alone), and the reference loop (``fused=False``) is refused.
 
 Calibrated-simulation mode (``service_model`` + ``VirtualClock``) advances
 the clock by modeled time, so reports are byte-identical per seed."""
@@ -96,18 +107,77 @@ class Request:
     failed: bool = False
 
 
-def _sample(logits, generator, temperature, mesh):
-    """The sampled tokens, on a mesh the first rank's on every rank."""
-    toks = sample(logits, generator, temperature=temperature)
-    if mesh is not None:
-        toks = sh.broadcast(toks, mesh.axis_names, mesh=mesh)
-    return toks
+class SlotLayout:
+    """Where a server's slots live on a mesh: the axes that split them
+    (the mesh's axes but ``model``; each data row holds a contiguous block
+    of ``per_row`` slots from ``lo``), the axes that split the model's
+    logits over the vocab, and the full vocab's size. ``None`` mesh: one
+    device, every slot."""
+
+    def __init__(self, model: Model, mesh, slots: int):
+        self.mesh = mesh
+        self.data_axes: Tuple[str, ...] = ()
+        self.vocab_axes: Tuple[str, ...] = ()
+        self.lo, self.per_row = 0, slots
+        self.vocab = None
+        if mesh is None:
+            return
+        self.vocab_axes = tuple(model.extras.get("vocab_axes") or ())
+        data = tuple(a for a in mesh.axis_names if a != "model")
+        dp = mesh.size(data)
+        if dp > 1:
+            if slots % dp:
+                raise ValueError(f"{slots} slots do not split over {data} "
+                                 f"= {dp}")
+            talks = {a for spec in model.extras.get("param_specs",
+                                                    {}).values()
+                     for e in spec for a in sh.norm_axes(e) if a in data}
+            if talks:
+                raise NotImplementedError(
+                    f"LMServer over {data}: the model splits its weights "
+                    f"over {sorted(talks)}, so its data rows could not "
+                    f"prefill their own requests alone")
+            self.data_axes = data
+            self.per_row = slots // dp
+            self.lo = mesh.index(data) * self.per_row
+        self.vocab = model.cfg.padded(mesh.shape.get("model", 1)).vocab_size
+
+    def local(self, slot: int) -> bool:
+        return self.lo <= slot < self.lo + self.per_row
+
+
+def _sample(logits, generator, temperature, layout: Optional[SlotLayout],
+            rows: Optional[torch.Tensor] = None,
+            total: Optional[int] = None):
+    """The sampled tokens: one device's, or on a mesh the same on every
+    rank. There a model's logits split over the vocab are gathered first;
+    over a data axis ``logits`` are rows ``rows`` of a batch of ``total``
+    (this data row's), sampled with the whole batch's noise, and the
+    tokens of every row are made one ``[total]`` vector: each data row's
+    tokens and zeros elsewhere, summed over ``data``. Then the first
+    rank's are broadcast."""
+    if layout is None or layout.mesh is None:
+        return sample(logits, generator, temperature=temperature)
+    mesh = layout.mesh
+    if layout.vocab_axes and logits.shape[0]:
+        logits = sh.all_gather(logits, layout.vocab_axes, 1, mesh=mesh)
+    if not layout.data_axes:
+        toks = sample(logits, generator, temperature=temperature)
+    else:
+        if not logits.shape[0]:       # no request of the batch is this row's
+            logits = logits.new_empty((0, layout.vocab))
+        toks = sample(logits, generator, temperature=temperature,
+                      rows=(rows, total))
+        full = torch.zeros((total,), dtype=torch.int32, device=toks.device)
+        toks = sh.psum(full.index_copy_(0, rows, toks), layout.data_axes,
+                       mesh=mesh)
+    return sh.broadcast(toks, mesh.axis_names, mesh=mesh)
 
 
 def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
                          max_len: int,
                          generator: Optional[torch.Generator] = None,
-                         mesh=None):
+                         layout: Optional[SlotLayout] = None):
     """Build the fused device-resident decode step (the engine's hot loop).
 
     Signature: ``(params, cache, lengths, cur, active, gen, max_new) ->
@@ -115,12 +185,20 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
     updated in place; ``packed`` is the single per-step host transfer
     ``cat([tokens, done])`` ([2*slots] int32). A slot finishes when its
     sampled token is EOS, its generated count reaches ``max_new``, or its
-    advanced context length reaches ``max_len - 1``. On a ``mesh`` the
-    tokens are the first rank's."""
+    advanced context length reaches ``max_len - 1``. On a mesh
+    (``layout``) the model decodes this data row's slots (``cache`` holds
+    theirs) and the tokens are common to every rank (:func:`_sample`)."""
+    lo, n = (0, None) if layout is None else (layout.lo, layout.per_row)
+    rows = None
+    if layout is not None and layout.data_axes:
+        rows = torch.arange(lo, lo + n, device=model.device)
 
     def fused(params, cache, lengths, cur, active, gen, max_new):
-        logits, _ = model.decode_step(params, cache, cur, lengths)
-        toks = _sample(logits, generator, temperature, mesh)
+        hi = lo + (n or lengths.shape[0])
+        logits, _ = model.decode_step(params, cache, cur[lo:hi],
+                                      lengths[lo:hi])
+        toks = _sample(logits, generator, temperature, layout, rows,
+                       lengths.shape[0])
         act = active.to(torch.int32)
         new_len = lengths + act
         new_gen = gen + act
@@ -137,14 +215,15 @@ def make_fused_decode_fn(model: Model, *, temperature: float, eos: int,
 
 
 def make_decode_fn(model: Model, *, temperature: float,
-                   generator: Optional[torch.Generator] = None, mesh=None):
+                   generator: Optional[torch.Generator] = None,
+                   layout: Optional[SlotLayout] = None):
     """The reference loop's decode step: ``(params, cache, tokens, lengths)
     -> tokens`` [slots] int32, the cache updated in place; the host does the
     rest."""
 
     def decode(params, cache, tokens, lengths):
         logits, _ = model.decode_step(params, cache, tokens, lengths)
-        return _sample(logits, generator, temperature, mesh)
+        return _sample(logits, generator, temperature, layout)
 
     return decode
 
@@ -239,11 +318,11 @@ class LMServer:
         mesh = model.extras.get("mesh")
         self.mesh = mesh if mesh is not None and mesh.world is not None \
             else None
-        if self.mesh is not None and self.mesh.size(
-                [a for a in self.mesh.axis_names if a != "model"]) != 1:
+        self.layout = SlotLayout(model, self.mesh, slots)
+        if self.layout.data_axes and not fused:
             raise NotImplementedError(
-                f"LMServer on a {self.mesh.shape} mesh: a server over a data "
-                f"axis is not ported; every axis but model must have size 1")
+                f"LMServer over {self.layout.data_axes}: the reference loop "
+                f"(fused=False) serves every slot on one device")
         self.slots = slots
         self.max_len = max_len
         self.temperature = temperature
@@ -297,7 +376,7 @@ class LMServer:
         self._prefill_shapes: set = set()
 
         dev = self.device
-        self.cache = model.init_cache(slots, max_len)
+        self.cache = model.init_cache(self.layout.per_row, max_len)
         self.lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.cur_tokens = torch.zeros((slots, 1), dtype=torch.int32,
                                       device=dev)
@@ -307,11 +386,12 @@ class LMServer:
         if fused:
             self._decode_fused = make_fused_decode_fn(
                 model, temperature=temperature, eos=eos_token,
-                max_len=max_len, generator=self.generator, mesh=self.mesh)
+                max_len=max_len, generator=self.generator,
+                layout=self.layout)
         else:
             self._decode = make_decode_fn(model, temperature=temperature,
                                           generator=self.generator,
-                                          mesh=self.mesh)
+                                          layout=self.layout)
         # the fused step's CUDA graph (card only): the params tree it reads
         # (or that the eager step before its capture ran with), the graph,
         # its packed output, and its kernel launches per replay
@@ -396,7 +476,11 @@ class LMServer:
         return batch, False
 
     def _prefill(self, params, toks: np.ndarray, vlens: np.ndarray,
-                 padded: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 padded: bool, rows: Optional[List[int]] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The prefill of the admitted batch ``toks`` (its shape is the
+        one dispatched), or over a data axis of its ``rows`` that go to
+        this data row's slots: ``(None, None)`` where none does."""
         shape = (toks.shape[0], toks.shape[1], padded)
         if shape not in self._prefill_shapes:
             self._prefill_shapes.add(shape)
@@ -406,6 +490,10 @@ class LMServer:
                     "compile", "engine.prefill", self.clock(),
                     attrs={"batch": shape[0], "prompt_len": shape[1],
                            "padded": padded})
+        if rows is not None:
+            if not rows:
+                return None, None
+            toks, vlens = toks[rows], vlens[rows]
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         if padded:
             batch["lengths"] = torch.from_numpy(vlens).to(self.device)
@@ -434,8 +522,12 @@ class LMServer:
             L = len(r.prompt)
             toks[i, :L] = r.prompt
             vlens[i] = L
+        rows, more = None, ()
+        if self.layout.data_axes:       # the requests going to this row
+            rows = [i for i in range(n) if self.layout.local(free[i])]
+            more = (rows,)
         t0 = self.clock()
-        logits, pcache = self._prefill(params, toks, vlens, padded)
+        logits, pcache = self._prefill(params, toks, vlens, padded, *more)
         if self.device.type == "cuda":
             # the reference's block_until_ready(logits): the service time
             # ends with the prefill, before the first token is sampled
@@ -460,7 +552,7 @@ class LMServer:
                         r.trace, "prefill", "lm.prefill", t0, t0 + dt,
                         budget_s=self.slo * self.prefill_slo_frac,
                         attrs={"batch": n, "padded_len": int(plen)})
-        self._place(batch, logits, pcache, free, vlens, dt)
+        self._place(batch, logits, pcache, free, vlens, dt, rows)
 
     def _agreed(self, dt: float) -> float:
         """The ranks' largest ``dt`` on a mesh (their admission decisions
@@ -472,12 +564,26 @@ class LMServer:
         return float(sh.pmax(t, self.mesh.axis_names, mesh=self.mesh)[0])
 
     @torch.no_grad()
-    def _place(self, batch, logits, pcache, free, vlens, dt) -> None:
+    def _place(self, batch, logits, pcache, free, vlens, dt,
+               rows: Optional[List[int]] = None) -> None:
         """Admission's second half: sample each request's first token from
         its prefill ``logits`` and move request ``i`` (row ``i`` of
-        ``pcache``, ``vlens[i]`` valid positions) into slot ``free[i]``."""
+        ``pcache``, ``vlens[i]`` valid positions) into slot ``free[i]``.
+        Over a data axis ``logits`` and ``pcache`` hold the batch's
+        ``rows`` (:meth:`_prefill`), and this data row's cache takes them."""
         n = len(batch)
-        first = _sample(logits, self.generator, self.temperature, self.mesh)
+        dev = self.device
+        if rows is None:
+            first = _sample(logits, self.generator, self.temperature,
+                            self.layout)
+        else:
+            if logits is None:
+                logits = torch.empty((0, self.layout.vocab),
+                                     dtype=self.model.dtype, device=dev)
+            first = _sample(logits, self.generator,
+                            self.temperature, self.layout,
+                            torch.tensor(rows, dtype=torch.long, device=dev),
+                            len(vlens))
         first_np = first.cpu().numpy()
         if not self.fused:
             # reference loop: per-request scatter, per-slot state writes
@@ -499,10 +605,15 @@ class LMServer:
             r.tokens.append(int(first_np[i]))
             self._active[s] = r
             maxnews[i] = r.max_new_tokens
-        dev = self.device
         dst = torch.tensor(free[:n], dtype=torch.long, device=dev)
         src = torch.arange(n, dtype=torch.long, device=dev)
-        batched_scatter(self.cache, pcache, dst, src)
+        if rows is None:
+            batched_scatter(self.cache, pcache, dst, src)
+        elif rows:
+            batched_scatter(self.cache, pcache, torch.tensor(
+                [free[i] - self.layout.lo for i in rows], dtype=torch.long,
+                device=dev), torch.arange(len(rows), dtype=torch.long,
+                                          device=dev))
         _admit_state(self.lengths, self.cur_tokens, self.active_mask,
                      self.gen_counts, self.max_new, dst, src,
                      torch.from_numpy(vlens).to(dev), first,

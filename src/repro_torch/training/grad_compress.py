@@ -17,7 +17,8 @@ over the ranks that hold it whole (the in-pod axes its spec does not
 split; one fp32 all-reduce per set of axes, leaves packed together) and
 divided by the pod's ranks: the mean over the batch ranks. Across pods,
 :func:`_pod_mean_int8` carries the reference's arithmetic to the wire:
-the scale from one fp32 max over ``pod`` of every leaf's max|g|, the
+the scale from one fp32 max of every leaf's max|g| over the pods and
+over the leaf's blocks (one max over every axis of the mesh), the
 int8 payloads of all leaves packed and all-gathered over ``pod``, and
 each rank's own int16 sum of them (``_wire_sum``), the reference's exact
 sum. The wire is a gather because neither gloo nor NCCL reduces int16. A
@@ -116,11 +117,13 @@ def _pod_local_mean(grads, specs: Dict[str, Any], mesh):
 def _pod_mean_int8(grads, mesh):
     """The mean over pods of every leaf, through int8 payloads gathered
     over ``pod`` and an int16 sum on each rank: ``_quantized_pod_mean`` of
-    the pods' stacked gradients, leaf by leaf."""
+    the pods' stacked gradients, leaf by leaf. A leaf's scale is its
+    largest value over the pods and over every block of it, so one max
+    over all of the mesh's axes (a replicated leaf's copies are equal)."""
     npods = mesh.shape["pod"]
     gs = [g.float() for g in leaves(grads)]
-    amax = sh.pmax(torch.stack([g.abs().max() for g in gs]), "pod",
-                   mesh=mesh)
+    amax = sh.pmax(torch.stack([g.abs().max() for g in gs]),
+                   mesh.axis_names, mesh=mesh)
     scale = torch.clamp_min(amax, 1e-20) / 127.0
     q = torch.cat([torch.clamp(torch.round(g / scale[i]), -127, 127)
                    .to(torch.int8).reshape(-1) for i, g in enumerate(gs)])

@@ -15,7 +15,9 @@ from typing import Any, Callable, Dict, List, NamedTuple
 import torch
 
 from repro_torch.distributed import sharding as sh
-from repro_torch.tree import flatten_with_paths, leaves, tree_map
+from repro_torch.tree import (
+    flatten_with_paths, leaves, tree_map, unflatten_like,
+)
 
 
 def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
@@ -116,30 +118,71 @@ def adafactor_init(params) -> AdafactorState:
                           vc=tree_map(cols, params))
 
 
+def _split_axes(spec, dim: int, ndim: int, mesh) -> tuple:
+    """The mesh axes of more than one rank that split dim ``dim`` (from
+    the end) of an ``ndim``-dim leaf laid out by ``spec``."""
+    i = ndim + dim
+    if mesh is None or spec is None or not 0 <= i < len(spec):
+        return ()
+    axes = mesh.axes(sh.norm_axes(spec[i]))
+    return axes if mesh.size(axes) > 1 else ()
+
+
+def _global_mean(x: torch.Tensor, dim: int, axes, mesh, *,
+                 keepdim: bool = False) -> torch.Tensor:
+    """The mean over dim ``dim`` of the leaf ``x`` is this rank's block of,
+    that dim split over ``axes``: the ranks' sums added, over the whole
+    dim's length."""
+    if not axes:
+        return x.mean(dim=dim, keepdim=keepdim)
+    return sh.psum(x.sum(dim=dim, keepdim=keepdim), axes, mesh=mesh) / (
+        x.shape[dim] * mesh.size(axes))
+
+
 def adafactor_update(grads, state: AdafactorState, params, *, lr,
-                     decay=0.8, eps=1e-30, clip=1.0):
-    """-> (new params, new state, 0.0 in place of a grad norm)."""
+                     decay=0.8, eps=1e-30, clip=1.0, specs=None, mesh=None):
+    """-> (new params, new state, 0.0 in place of a grad norm). ``specs``,
+    ``mesh``: the leaves split over a mesh's ranks. Each factor is the
+    whole leaf's: a row or column mean over a split dim, the rows' mean
+    that normalises the row factor and the update's RMS sum over the axes
+    that split them, so every rank updates its block as one device
+    updates the whole leaf."""
     step = state.step + 1
     beta = 1.0 - torch.pow(step.float(), -decay)
+    specs = specs or {}
 
-    def upd(g, vr, vc, p):
+    def upd(path, g, vr, vc, p):
+        spec = specs.get(path)
+        rows, cols = (_split_axes(spec, d, p.dim(), mesh) for d in (-2, -1))
+        every = mesh.axes([a for e in spec or () for a in sh.norm_axes(e)]) \
+            if mesh is not None else ()
         g = g.float()
         g2 = g * g + eps
         if p.dim() < 2:
             vr = beta * vr + (1 - beta) * g2
             u = g / torch.sqrt(vr)
         else:
-            vr = beta * vr + (1 - beta) * g2.mean(dim=-1)
-            vc = beta * vc + (1 - beta) * g2.mean(dim=-2)
-            r = vr / torch.clamp_min(vr.mean(dim=-1, keepdim=True), eps)
+            vr = beta * vr + (1 - beta) * _global_mean(g2, -1, cols, mesh)
+            vc = beta * vc + (1 - beta) * _global_mean(g2, -2, rows, mesh)
+            r = vr / torch.clamp_min(_global_mean(vr, -1, rows, mesh,
+                                                  keepdim=True), eps)
             u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :])
-        rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+        if every and mesh.size(every) > 1:
+            ms = sh.psum(torch.sum(u * u), every, mesh=mesh) / (
+                u.numel() * mesh.size(every))
+        else:
+            ms = torch.mean(u * u)
+        rms = torch.sqrt(ms + 1e-12)
         u = u / torch.clamp_min(rms / clip, 1.0)
         return vr, vc, (p.float() - lr * u).to(p.dtype)
 
-    out = tree_map(upd, grads, state.vr, state.vc, params)
+    out = [upd(path, g, vr, vc, p) for (path, g), vr, vc, p in zip(
+        flatten_with_paths(grads), leaves(state.vr), leaves(state.vc),
+        leaves(params))]
     zero = torch.zeros((), dtype=torch.float32, device=step.device)
-    return (_nth(out, 2), AdafactorState(step, _nth(out, 0), _nth(out, 1)),
+    return (unflatten_like(params, [o[2] for o in out]),
+            AdafactorState(step, unflatten_like(params, [o[0] for o in out]),
+                           unflatten_like(params, [o[1] for o in out])),
             zero)
 
 

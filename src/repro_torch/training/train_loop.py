@@ -47,19 +47,15 @@ def make_train_step(model, tc: TrainConfig, mesh=None):
     mesh = mesh if mesh is not None else model.extras.get("mesh")
     specs = model.extras.get("param_specs", {})
     sharded = mesh is not None and mesh.world is not None
+    split = dict(specs=specs if sharded else None,
+                 mesh=mesh if sharded else None)
     if tc.optimizer == "adamw":
         opt_init, opt_update = opt_lib.adamw_init, partial(
             opt_lib.adamw_update, weight_decay=tc.weight_decay,
-            grad_clip=tc.grad_clip, specs=specs if sharded else None,
-            mesh=mesh if sharded else None)
-    elif sharded and any(mesh.size([a for e in spec
-                                    for a in sh.norm_axes(e)]) > 1
-                         for spec in specs.values()):
-        raise ValueError("adafactor factors each rank's block of a leaf "
-                         "split over the mesh and takes its norm locally; "
-                         "train split leaves with adamw")
+            grad_clip=tc.grad_clip, **split)
     else:
-        opt_init, opt_update = opt_lib.adafactor_init, opt_lib.adafactor_update
+        opt_init, opt_update = opt_lib.adafactor_init, partial(
+            opt_lib.adafactor_update, **split)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(model.loss_fn, params, batch,

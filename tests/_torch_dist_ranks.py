@@ -66,6 +66,17 @@ def _global_grads(grads, specs, mesh):
             for p, g in flatten_with_paths(grads)}
 
 
+def full_logits(model, logits):
+    """Logits over the whole vocab: a rank's block of them gathered over
+    the axes that split the vocab (``extras["vocab_axes"]``)."""
+    from repro_torch.distributed.sharding import all_gather
+    axes = model.extras.get("vocab_axes")
+    if not axes:
+        return logits
+    return all_gather(logits, axes, logits.dim() - 1,
+                      mesh=model.extras["mesh"])
+
+
 def world_8(rank: int, refdir: str):
     """Every case of the (2, 4) and (2, 2, 2) meshes, on one world of 8."""
     from repro_torch.bridge import params_for_rank
@@ -92,11 +103,21 @@ def world_8(rank: int, refdir: str):
     toks = _rows({"tokens": ref["cp_tokens"]}, mesh, rules)
     for name, r in (("cp", rules_cp), ("tp", rules)):
         m = build_model(cfg, device="cpu", mesh=mesh, rules=r, **blk)
+        w.record.clear()
         with torch.no_grad():
             logits, cache = m.prefill(params_for_rank(tree, m), toks)
-        out[f"{name}_logits"] = _f32(logits)
+        out[f"{name}_logits"] = _f32(full_logits(m, logits))
         out[f"{name}_cache"] = {k: _f32(cache[k]) for k in ("k", "v")}
-    out["cp_record"] = w.record.summary()
+        out[f"{name}_record"] = w.record.summary()
+    # one decode step on the TP layout's cache (this rank's kv head)
+    with torch.no_grad():
+        local = params_for_rank(tree, m)
+        _, cache = m.prefill(local, toks, max_len=toks["tokens"].shape[1] + 1)
+        tok = _rows({"t": ref["cp_tokens"][:, :1]}, mesh, rules)["t"]
+        logits, cache = m.decode_step(local, cache, tok,
+                                      cache["lengths"].clone())
+    out["tp_decode_logits"] = _f32(full_logits(m, logits))
+    out["tp_decode_cache"] = {k: _f32(cache[k]) for k in ("k", "v")}
 
     # dp-major training and the baseline rules: the loss and gradients
     cfg = config(DP_CASE["arch"], DP_CASE["capacity"])
@@ -115,6 +136,7 @@ def world_8(rank: int, refdir: str):
         out[f"{name}_loss"] = float(loss)
         out[f"{name}_record"] = w.record.summary()
         out[f"{name}_grads"] = _global_grads(grads, specs, mesh)
+        out[f"{name}_specs"] = {p: tuple(s) for p, s in specs.items()}
 
     # moe gather mode against ep2d (kimi)
     cfg = config(EP2D_CASE["arch"], EP2D_CASE["capacity"])
@@ -125,8 +147,8 @@ def world_8(rank: int, refdir: str):
     for name, r in (("ep2d", r2d), ("gather", rg)):
         m = build_model(cfg, device="cpu", mesh=mesh, rules=r)
         with torch.no_grad():
-            out[f"{name}_logits"] = _f32(m.prefill(params_for_rank(tree, m),
-                                                   toks)[0])
+            out[f"{name}_logits"] = _f32(full_logits(m, m.prefill(
+                params_for_rank(tree, m), toks)[0]))
         out[f"{name}_specs"] = {p: tuple(s) for p, s in
                                 m.extras["param_specs"].items()}
 
@@ -147,6 +169,8 @@ def world_8(rank: int, refdir: str):
                                  num_microbatches=nmb, mesh=mesh3,
                                  param_specs=m.extras["param_specs"])
     out["pod_record"] = w3.record.summary()
+    out["pod_specs"] = {p: tuple(s) for p, s in
+                        m.extras["param_specs"].items()}
     out["pod_loss"] = float(loss)
     out["pod_grads"] = _global_grads(grads, m.extras["param_specs"], mesh3)
     # and the step the launcher runs, on the same arguments
@@ -190,21 +214,103 @@ def serve(model, params, cfg, device="cpu"):
             srv)
 
 
-def world_serve(rank: int):
-    """``LMServer`` on a (1, 4) mesh: dbrx reduced, ``ep`` with one expert
-    a rank, the seeded weights of the one-device model."""
+def serve_config(arch: str):
+    """SERVE_CASE's config of ``arch`` (its capacity for a moe)."""
+    return config(arch, SERVE_CASE["capacity"] if arch == SERVE_CASE["arch"]
+                  else None)
+
+
+def world_serve(rank: int, shape=(1, 4), arch=SERVE_CASE["arch"]):
+    """``LMServer`` on a (data, model) mesh, the seeded weights of the
+    one-device model: dbrx reduced (``ep`` with one expert a rank on (1,
+    4)) or a dense model, its attention, FFN, embedding and head split
+    over ``model``, and over ``data`` each data row its slots."""
     from repro_torch.distributed.sharding import serve_rules
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.api import build_model
 
-    mesh = make_local_mesh(1, 4, device="cpu")
-    cfg = config(SERVE_CASE["arch"], SERVE_CASE["capacity"])
+    mesh = make_local_mesh(*shape, device="cpu")
+    cfg = serve_config(arch)
     model = build_model(cfg, device="cpu", mesh=mesh, rules=serve_rules(False))
     params = model.init(torch.Generator().manual_seed(SERVE_CASE["seed"]))
-    streams, report, _ = serve(model, params, cfg)
-    return {"streams": streams, "report": report,
-            "record": mesh.world.record.summary(),
-            "experts": tuple(params["layers"]["moe"]["wi"].shape)}
+    streams, report, srv = serve(model, params, cfg)
+    out = {"streams": streams, "report": report,
+           "record": mesh.world.record.summary(),
+           "cache": tuple(srv.cache["k"].shape),
+           "wq": tuple(params["layers"]["attn"]["wq"].shape)}
+    if cfg.family == "moe":
+        out["experts"] = tuple(params["layers"]["moe"]["wi"].shape)
+    return out
+
+
+def launcher_serve(rank: int, model_parallelism: int, argv):
+    """``launch.serve``'s ``main`` on this rank, in a world already
+    joined, on ``make_elastic_mesh(model_parallelism)`` -> its mesh, slots
+    and streams."""
+    import functools
+    from repro_torch.launch import mesh as M, serve as S
+
+    S.init_world_from_env = lambda device: True
+    S.make_elastic_mesh = functools.partial(M.make_elastic_mesh,
+                                            model_parallelism)
+    srv = S.main(argv)
+    return {"mesh": dict(srv.mesh.shape), "slots": srv.slots,
+            "streams": {r: q.tokens for r, q in srv.completed.items()}}
+
+
+ADAFACTOR_LR = 1e-2
+
+
+def adafactor_case(arch: str):
+    """(config, seeded one-device-model params seed, batch) of the
+    Adafactor parity worlds: a reduced config (dbrx at capacity 8), a
+    (4, 32) batch from ``default_rng(0)``."""
+    cfg = config(arch, 8.0 if arch == "dbrx-132b" else None)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    return cfg, batch
+
+
+def world_adafactor(rank: int, shape, arch: str):
+    """Adafactor on a (data, model) mesh under ``train_rules``: dense TP
+    (and ``fsdp`` over data), the moe experts over ``model``. (a) The
+    optimizer alone, on the one device's fp32 params and gradients cut to
+    this rank's blocks; (b) one training step. -> the global updated
+    params of each."""
+    from repro_torch.bridge import params_for_rank
+    from repro_torch.distributed.sharding import rank_rows, train_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.grad_compress import loss_and_grads
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    mesh = make_local_mesh(*shape, device="cpu")
+    cfg, batch = adafactor_case(arch)
+    rules = train_rules(False)
+    model = build_model(cfg, device="cpu", mesh=mesh, rules=rules)
+    specs = model.extras["param_specs"]
+    one = build_model(cfg.padded_config(shape[1]), device="cpu")
+    whole = one.init(torch.Generator().manual_seed(0))
+    _, grads = loss_and_grads(one.loss_fn, whole, batch)
+    p32 = tree_map(lambda t: t.float(), params_for_rank(whole, model))
+    new, _, _ = opt.adafactor_update(
+        params_for_rank(grads, model), opt.adafactor_init(p32), p32,
+        lr=ADAFACTOR_LR, specs=specs, mesh=mesh)
+    out = {"opt": _global_grads(new, specs, mesh)}
+    step, opt_init = make_train_step(model, TrainConfig(
+        optimizer="adafactor", lr=ADAFACTOR_LR, warmup_steps=0,
+        total_steps=10))
+    params = model.init(torch.Generator().manual_seed(0))
+    new, _, metrics = step(params, opt_init(params),
+                           rank_rows(batch, mesh, rules["batch"]))
+    out["step"] = _global_grads(new, specs, mesh)
+    out["loss"] = float(metrics["loss"])
+    out["record"] = mesh.world.record.summary()
+    return out
 
 
 def card_ep_rank(rank: int, params, tokens):
@@ -233,11 +339,13 @@ def _prefill_and_decode(model, params, tokens, op, sample, steps=4):
         before = op.launches
         logits, pc = model.prefill(params, {"tokens": tokens},
                                    max_len=tokens.shape[1] + steps + 1)
+        logits = full_logits(model, logits)
         lengths = pc["lengths"].clone()
         for _ in range(steps):
             out.append(logits.float().cpu().numpy())
             tok = sample(logits, None, temperature=0.0)[:, None]
             logits, pc = model.decode_step(params, pc, tok, lengths)
+            logits = full_logits(model, logits)
             lengths = lengths + 1
         out.append(logits.float().cpu().numpy())
         return out, op.launches - before

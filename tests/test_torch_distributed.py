@@ -171,6 +171,16 @@ def _rows_by_data(world, key, members):
     return np.concatenate([world[r][key] for r in members])
 
 
+def _calls(record, dtype=None):
+    """{(op, axes): calls} of a rank's collective record (of one dtype)."""
+    out = {}
+    for e in record:
+        if dtype in (None, e["dtype"]):
+            key = (e["op"], tuple(e["axes"]))
+            out[key] = out.get(key, 0) + e["calls"]
+    return out
+
+
 def _bf16_rounds(a, b):
     """max |a - b| in bf16 roundings of the largest |b|."""
     return float(np.abs(a - b).max() / (BF16_ULP * np.abs(b).max()))
@@ -198,6 +208,19 @@ def test_mesh_matches_the_reference_device_order(ref, world):
                                for a in fixed)]
                 assert list(members) == want
                 assert rank in members
+
+
+def test_run_ranks_asks_for_the_card_by_default(monkeypatch, tmp_path):
+    """``run_ranks`` runs its ranks on the card unless asked for the CPU:
+    without one it raises through ``resolve_device``, before it spawns a
+    rank."""
+    import inspect
+    assert inspect.signature(t_mesh.run_ranks).parameters[
+        "device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        t_mesh.run_ranks(_fail_on_rank_1, 2, timeout=10,
+                         tmpdir=str(tmp_path))
 
 
 def test_more_ranks_than_cards_raises_without_share(monkeypatch):
@@ -259,22 +282,57 @@ def test_context_parallel_prefill(ref, world):
             assert np.array_equal(world[r]["cp_cache"][k],
                                   world[base]["cp_cache"][k])
     # the port's CP logits and cache are its one-device ones, bit for bit
-    # (the same blocks meet the same products)
+    # (the layers gather their weights, so the same blocks meet the same
+    # products)
     assert np.array_equal(cp, one)
-    assert np.array_equal(tp, one)
     for k in ("k", "v"):
         got = np.concatenate([world[r]["cp_cache"][k] for r in rows], axis=1)
         assert np.array_equal(got, cache[k].float().numpy())
+    # dense TP sums each rank's heads' and d_ff columns' partial products
+    # over model: within 2 bf16 roundings of the one device's logits
+    print("tp against one device:", _bf16_rounds(tp, one), "roundings")
+    assert _bf16_rounds(tp, one) <= 2.0
+    # each rank's cache holds its kv head of the one device's
+    for r in range(8):
+        h = r % 4
+        for k in ("k", "v"):
+            want = cache[k].float().numpy()[:, r // 4:r // 4 + 1, :,
+                                            h:h + 1]
+            assert world[r]["tp_cache"][k].shape == want.shape
+            assert _bf16_rounds(world[r]["tp_cache"][k], want) <= 2.0
+    # one decode step from the prefill: each rank's cache holds its kv
+    # head, and the logits stay within 2 roundings of one device's
+    with torch.no_grad():
+        toks = torch.from_numpy(out["cp_tokens"])
+        _, c1 = m.prefill(params, {"tokens": toks}, max_len=toks.shape[1] + 1)
+        d1, c1 = m.decode_step(params, c1, toks[:, :1], c1["lengths"].clone())
+    dec = _rows_by_data(world, "tp_decode_logits", rows)
+    print("tp decode against one device:", _bf16_rounds(dec, d1.float()
+                                                        .numpy()))
+    assert _bf16_rounds(dec, d1.float().numpy()) <= 2.0
+    for r in range(8):
+        for k in ("k", "v"):
+            want = c1[k].float().numpy()[:, r // 4:r // 4 + 1, :,
+                                         r % 4:r % 4 + 1]
+            assert _bf16_rounds(world[r]["tp_decode_cache"][k], want) <= 2.0
     # against the reference: its own bound is 0.1; both of its layouts
     # stay within 2 bf16 roundings of the largest logit of the port's
     ref_cp, ref_tp = out["cp_cp_logits"], out["cp_tp_logits"]
+    print("tp against the reference's TP:", _bf16_rounds(tp, ref_tp),
+          "roundings")
     assert float(np.abs(cp - ref_cp).max()) < 0.1
     assert _bf16_rounds(cp, ref_cp) <= 2.0
     assert _bf16_rounds(tp, ref_tp) <= 2.0
-    # K/V travel by one all_gather each a layer over model
-    rec = {(e["op"], tuple(e["axes"])): e["calls"]
-           for e in world[0]["cp_record"]}
-    assert rec[("all_gather", ("model",))] == 2 * 2 + 1   # K, V; final x
+    # CP: K/V travel by one all_gather each a layer over model, and each
+    # layer gathers its 7 dense weights, the embedding and head theirs
+    rec = _calls(world[0]["cp_record"])
+    assert rec[("all_gather", ("model",))] == 2 * 2 + 1 + 2 * 7 + 2
+    # TP: the embedding's, each layer's attention and FFN sums over model
+    # (in fp32), and the logits gathered over the vocab
+    assert _calls(world[0]["tp_record"]) == {("psum", ("model",)): 1 + 2 * 2,
+                                             ("all_gather", ("model",)): 1}
+    assert _calls(world[0]["tp_record"], "float32") == {
+        ("psum", ("model",)): 2 * 2}
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +368,15 @@ def test_dp_major_loss_and_gradients(ref, world):
     ops = {(e["op"], tuple(e["axes"])) for e in world[0]["dpm_record"]}
     assert {("all_gather", ("model",)), ("psum_scatter", ("model",)),
             ("all_gather", ("data",))} <= ops
+    # the baseline rules split the dense leaves over model (row sums and
+    # the vocab-parallel loss) and store them over data by fsdp: gathered
+    # a layer at a time, their gradients scattered back
+    ops = _calls(world[0]["base_record"])
+    assert {("all_gather", ("data",)), ("psum_scatter", ("data",)),
+            ("psum", ("model",)), ("pmax", ("model",))} <= set(ops)
+    specs = world[0]["base_specs"]
+    assert specs["layers/attn/wq"] == (None, "data", "model")
+    assert specs["embed/head"] == ("data", "model")
     # the gradients through every collective's adjoint: dp-major's
     # gathers and scatters, and the baseline's psum of partial expert sums
     # over model with x replicated there
@@ -369,7 +436,13 @@ def test_multi_pod_gradients_ride_int8_within_one_quantum(ref, world):
         if e["op"] == "pmax":
             assert e["calls"] == 1
     got = world[0]["pod_grads"]
-    n = sum(g.size for g in got.values())
+    # each rank's blocks: the dense leaves over (data, model), whole over
+    # pod; 2 ways along each axis a spec names
+    specs = world[0]["pod_specs"]
+    n = sum(g.size // 2 ** len([a for e in specs.get(p, ()) for a in
+                                ((e,) if isinstance(e, str) else e or ())])
+            for p, g in got.items())
+    assert specs["layers/attn/wq"] == (None, "data", "model")
     gather = next(e for e in over_pod if e["op"] == "all_gather")
     assert (gather["calls"], gather["bytes"]) == (1, n)
     assert not any(e["dtype"] == "int16" for e in rec)
@@ -404,14 +477,29 @@ def test_multi_pod_gradients_ride_int8_within_one_quantum(ref, world):
 
 
 # ---------------------------------------------------------------------------
-# LMServer on a (1, 4) mesh (dbrx reduced, capacity 8, greedy)
+# LMServer on (1, 4) and (2, 2) meshes (dbrx reduced, capacity 8, and
+# granite reduced, greedy)
 # ---------------------------------------------------------------------------
 
 def test_lmserver_on_four_ranks(monkeypatch, tmp_path):
-    ranks = t_mesh.run_ranks(R.world_serve, 4, device="cpu", timeout=120,
-                             tmpdir=str(tmp_path))
-    cfg = R.config(R.SERVE_CASE["arch"], R.SERVE_CASE["capacity"])
-    model = build_model(cfg.padded_config(4), device="cpu")
+    _serve_on_four_ranks(monkeypatch, tmp_path, (1, 4), "dbrx-132b")
+
+
+@pytest.mark.parametrize("shape,arch", [
+    ((2, 2), "dbrx-132b"), ((2, 2), "granite-8b"), ((1, 4), "granite-8b")])
+def test_lmserver_over_data_and_dense_tp(monkeypatch, tmp_path, shape, arch):
+    _serve_on_four_ranks(monkeypatch, tmp_path, shape, arch)
+
+
+def _serve_on_four_ranks(monkeypatch, tmp_path, shape, arch):
+    """Four ranks serve the one device's streams (a stream may part only
+    at a near-tie of the one device's logits) with its engine report, the
+    mesh aside: on (1, 4) every rank serves every slot, on (2, 2) each
+    data row its half of them."""
+    ranks = t_mesh.run_ranks(R.world_serve, 4, shape, arch, device="cpu",
+                             timeout=120, tmpdir=str(tmp_path))
+    cfg = R.serve_config(arch)
+    model = build_model(cfg.padded_config(shape[1]), device="cpu")
     params = model.init(torch.Generator().manual_seed(R.SERVE_CASE["seed"]))
     holder = {}
     real = t_engine.LMServer.run
@@ -424,9 +512,15 @@ def test_lmserver_on_four_ranks(monkeypatch, tmp_path):
 
     monkeypatch.setattr(t_engine.LMServer, "run", run)
     streams, report, _ = R.serve(model, params, cfg)
-    # each rank holds one expert of four; all four serve the same streams
-    assert all(r["experts"][1] == 1 for r in ranks)
+    # each rank holds its block of the heads (and on moe of the experts),
+    # and the cache of its kv heads of its data row's slots
+    one_wq = tuple(params["layers"]["attn"]["wq"].shape)
     for r in ranks:
+        assert r["wq"] == one_wq[:2] + (one_wq[2] // shape[1],)
+        assert r["cache"][1] == R.SERVE_CASE["slots"] // shape[0]
+        assert r["cache"][3] == cfg.padded(shape[1]).num_kv_heads // shape[1]
+        if "experts" in r:
+            assert r["experts"][1] == cfg.num_experts // shape[1]
         assert r["streams"] == ranks[0]["streams"]
     got = ranks[0]["streams"]
     logits = holder["logits"]
@@ -440,17 +534,60 @@ def test_lmserver_on_four_ranks(monkeypatch, tmp_path):
             a, b = want[k], got[rid][k]
             assert row[a] - row[b] <= bf16_ulp(max(abs(row[a]),
                                                    abs(row[b]))), rid
-    print(f"LMServer on (1, 4): {len(streams) - parted} of {len(streams)} "
-          f"streams equal to one device's")
+    print(f"LMServer {arch} on {shape}: {len(streams) - parted} of "
+          f"{len(streams)} streams equal to one device's")
     # the engine reports the same, but the mesh it names
     rep = dict(ranks[0]["report"])
-    assert rep.pop("mesh") == {"shape": {"data": 1, "model": 4},
+    assert rep.pop("mesh") == {"shape": dict(zip(("data", "model"), shape)),
                                "backend": "gloo", "staged": False}
     assert rep == report
-    ops = {(e["op"], tuple(e["axes"])) for e in ranks[0]["record"]}
-    assert ("psum", ("model",)) in ops
+    ops = _calls(ranks[0]["record"])
+    assert ("psum", ("model",)) in ops                 # the row sums
+    assert ("all_gather", ("model",)) in ops           # the logits
     assert ("broadcast", ("data", "model")) in ops
     assert ("pmax", ("data", "model")) in ops
+    # over data: the rows' tokens summed once a prefill and once a step
+    assert (("psum", ("data",)) in ops) == (shape[0] > 1)
+    if shape[0] > 1:
+        assert ops[("psum", ("data",))] == ops[("broadcast",
+                                                ("data", "model"))]
+
+
+def test_serve_launcher_on_an_elastic_mesh_with_data(tmp_path):
+    """``launch.serve`` on the elastic mesh of 4 ranks at a model
+    parallelism of 2, (2, 2): its slots rounded up to a multiple of the
+    data rows, every request served, the same streams on every rank."""
+    argv = ["--arch", "granite-8b", "--reduced", "--device", "cpu",
+            "--requests", "5", "--max-new", "4", "--slots", "3"]
+    ranks = t_mesh.run_ranks(R.launcher_serve, 4, 2, argv, device="cpu",
+                             timeout=120, tmpdir=str(tmp_path))
+    for r in ranks:
+        assert r["mesh"] == {"data": 2, "model": 2}
+        assert r["slots"] == 4
+        assert r["streams"] == ranks[0]["streams"]
+    assert sorted(ranks[0]["streams"]) == list(range(5))
+    assert all(len(t) == 4 for t in ranks[0]["streams"].values())
+
+
+def test_lmserver_over_data_refuses_models_that_split_over_data():
+    """Each data row prefills its own requests alone, so a model whose
+    weights are split over ``data`` (``fsdp`` there) is refused, and so is
+    the reference loop over ``data``."""
+    from repro_torch.distributed.sharding import serve_rules
+    m = build_model(R.config("granite-8b"), device="cpu",
+                    mesh=_rank_mesh((2, 2), 0),
+                    rules=dict(serve_rules(False), fsdp="data"))
+    with pytest.raises(NotImplementedError, match="over"):
+        t_engine.SlotLayout(m, m.extras["mesh"], 4)
+    m = build_model(R.config("granite-8b"), device="cpu",
+                    mesh=_rank_mesh((2, 2), 0), rules=serve_rules(False))
+    layout = t_engine.SlotLayout(m, m.extras["mesh"], 4)
+    assert (layout.data_axes, layout.lo, layout.per_row) == (("data",), 0, 2)
+    with pytest.raises(ValueError, match="do not split"):
+        t_engine.SlotLayout(m, m.extras["mesh"], 3)
+    # the reference loop serves every slot on one device
+    with pytest.raises(NotImplementedError, match="fused=False"):
+        t_engine.LMServer(m, device="cpu", slots=4, fused=False)
 
 
 # ---------------------------------------------------------------------------
@@ -550,34 +687,47 @@ class _LargestTensor(TorchDispatchMode):
 @pytest.mark.parametrize("arch,shape,rules", [
     ("dbrx-132b", (1, 4), {}),
     ("kimi-k2-1t-a32b", (2, 2), {"expert_ffn": "data"}),
-    ("kimi-k2-1t-a32b", (2, 2), {"fsdp": "data"})])
+    ("kimi-k2-1t-a32b", (2, 2), {"fsdp": "data"}),
+    ("granite-8b", (1, 4), {}),
+    ("qwen2-7b", (2, 2), {"fsdp": "data"}),
+    ("internvl2-1b", (2, 2), {"fsdp": "data"})])
 def test_rank_init_draws_only_its_block(arch, shape, rules):
     """``init`` on a rank's model gives its block of the one-device model's
     draw, bit for bit, and never makes the whole of a split leaf: its
-    largest tensor is a replicated leaf or one fp32 expert matrix."""
+    largest tensor is a replicated leaf or one fp32 matrix (an expert's,
+    or one layer's of a dense leaf). Every attention, FFN, embedding and
+    head leaf is split over ``model`` (and its ``d_model`` dim over
+    ``data`` by ``fsdp``); the norms and the router stay whole."""
     from repro_torch.distributed.sharding import block_slices, serve_rules
-    cfg = R.config(arch, 8.0)
+    cfg = R.config(arch, 8.0 if arch in ("dbrx-132b", "kimi-k2-1t-a32b")
+                   else None)
     one = build_model(cfg.padded_config(shape[1]), device="cpu")
     whole = dict(flatten_with_paths(one.init(torch.Generator().manual_seed(3))))
     ranks = shape[0] * shape[1]
     for r in range(ranks):
-        m = build_model(cfg, device="cpu", mesh=_rank_mesh(shape, r),
+        mesh = _rank_mesh(shape, r)
+        m = build_model(cfg, device="cpu", mesh=mesh,
                         rules=dict(serve_rules(False), **rules))
         specs = m.extras["param_specs"]
+        assert sorted(p for p in whole if p not in specs) == sorted(
+            p for p in whole if p.endswith(("norm", "ln1", "ln2", "router")))
         with _LargestTensor() as seen:
             got = dict(flatten_with_paths(
                 m.init(torch.Generator().manual_seed(3))))
         assert sorted(got) == sorted(whole)
-        split = 0
         for path, leaf in got.items():
             want = whole[path]
             if path in specs:
-                want = want[block_slices(want.shape, specs[path],
-                                         m.extras["mesh"])]
-                split += leaf.numel()
-                assert leaf.numel() < whole[path].numel(), path
+                want = want[block_slices(want.shape, specs[path], mesh)]
+                ways = mesh.size([a for e in specs[path]
+                                  for a in (e if isinstance(e, tuple)
+                                            else (e,)) if a])
+                assert "model" in str(specs[path]), path
+                assert leaf.numel() * ways == whole[path].numel(), path
+                if rules.get("fsdp") and "/moe/" not in path and \
+                        not path.endswith(("bq", "bk", "bv")):
+                    assert "data" in str(specs[path]), path
             assert torch.equal(leaf, want), path
-        assert split * ranks == sum(whole[p].numel() for p in specs)
         matrix = max(int(np.prod(whole[p].shape[-2:])) for p in specs) * 4
         replicated = max(whole[p].numel() for p in whole if p not in specs) * 4
         assert seen.bytes <= max(matrix, replicated), (seen.bytes, matrix,
@@ -586,14 +736,31 @@ def test_rank_init_draws_only_its_block(arch, shape, rules):
 
 
 def test_full_dbrx_rank_fits_one_card():
-    """Unreduced dbrx-132b (40 layers) on a (1, 4) mesh, built on the meta
-    device: each rank's init holds a quarter of the experts and every
-    dense weight, 72.9 GB, under one card's 80 GB."""
+    """Unreduced dbrx-132b (40 layers) on a (1, 4) mesh: a rank holds 65.8
+    GB, under one card's 80 GB (72.9 GB with its dense leaves whole)."""
+    assert 65.8e9 < _full_rank_bytes("dbrx-132b") < 65.9e9
+
+
+def test_full_smollm_rank_holds_a_quarter():
+    """Unreduced smollm-360m on (1, 4): a quarter of its 0.818 GB of
+    padded weights, but the norms."""
+    assert 0.2045e9 < _full_rank_bytes("smollm-360m") < 0.2055e9
+
+
+def _full_rank_bytes(arch):
+    """The bytes of each rank's init of unreduced ``arch`` on a (1, 4)
+    mesh, built on the meta device: a quarter of every split leaf (the
+    experts; attention, FFN, embedding and head over ``model``) and the
+    whole of the norms and the router."""
     from repro_torch.configs.registry import ARCHITECTURES
     from repro_torch.distributed.sharding import serve_rules
-    cfg = ARCHITECTURES["dbrx-132b"]
+    cfg = ARCHITECTURES[arch]
     meta = torch.device("meta")
+    nbytes = lambda m: {p: t.numel() * t.element_size() for p, t in
+                        flatten_with_paths(m.init(torch.Generator()))}
+    whole = nbytes(build_model(cfg.padded_config(4), device=meta))
     experts = 3 * cfg.num_layers * cfg.num_experts * cfg.d_model * cfg.d_ff
+    assert sum(b for p, b in whole.items() if "/moe/w" in p) == experts * 2
     for r in (0, 3):
         world = t_mesh.World(rank=r, coords={"data": 0, "model": r},
                              device=meta, backend="gloo", staged=False,
@@ -602,26 +769,91 @@ def test_full_dbrx_rank_fits_one_card():
             {"data": 1, "model": 4}, (meta,), world),
             rules=serve_rules(False))
         specs = m.extras["param_specs"]
-        sizes = {p: t.numel() * t.element_size() for p, t in
-                 flatten_with_paths(m.init(torch.Generator()))}
-        split = sum(b for p, b in sizes.items() if p in specs)
-        assert split * 4 == experts * 2                   # bf16
-        print(f"rank {r}: {sum(sizes.values()) / 1e9:.3f} GB of weights, "
-              f"{split / 1e9:.3f} GB of experts")
-        assert sum(sizes.values()) < 80e9
+        sizes = nbytes(m)
+        assert sorted(sizes) == sorted(whole)
+        for p, b in sizes.items():
+            assert b * (4 if p in specs else 1) == whole[p], p
+        dense = sum(whole[p] for p in specs if "/moe/" not in p)
+        kept = sum(whole[p] for p in whole if p not in specs)
+        print(f"{arch} rank {r}: {sum(sizes.values()) / 1e9:.3f} GB of "
+              f"weights ({experts * 2 / 4e9:.3f} GB of experts, "
+              f"{dense / 4e9:.3f} GB of split dense leaves, {kept / 1e9:.4f} "
+              f"GB whole); {sum(whole.values()) / 1e9:.3f} GB on one device")
+        assert sum(sizes.values()) == (experts * 2 + dense) / 4 + kept
+    return sum(sizes.values())
 
 
-def test_adafactor_refuses_leaves_split_over_ranks():
-    """Adafactor would factor each rank's block of a split leaf and take
-    its norm locally: ``make_train_step`` raises; adamw takes the whole
-    leaf's norm."""
-    from repro_torch.distributed.sharding import serve_rules
+@pytest.mark.parametrize("shape,arch", [
+    ((1, 4), "dbrx-132b"), ((1, 4), "granite-8b"), ((2, 2), "granite-8b")])
+def test_adafactor_trains_split_leaves(tmp_path, shape, arch):
+    """Adafactor on leaves split over ranks (the experts over ``model`` in
+    ``ep``; dense TP; on (2, 2) ``fsdp`` over data as well) takes each
+    factor, the row normaliser and the update's RMS over the whole leaf:
+    on the one device's gradients its update is one device's to fp32
+    rounding, and a whole step's params are within ``GRAD_ROUNDINGS`` of
+    the one device's step."""
+    from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import TrainConfig, make_train_step
-    m = build_model(R.config("dbrx-132b", 8.0), device="cpu",
-                    mesh=_rank_mesh((1, 4), 0), rules=serve_rules(False))
-    with pytest.raises(ValueError, match="adafactor"):
-        make_train_step(m, TrainConfig(optimizer="adafactor"))
-    make_train_step(m, TrainConfig(optimizer="adamw"))
+    from repro_torch.tree import tree_map
+    ranks = t_mesh.run_ranks(R.world_adafactor, 4, shape, arch,
+                             device="cpu", timeout=120, tmpdir=str(tmp_path))
+    cfg, batch = R.adafactor_case(arch)
+    one = build_model(cfg.padded_config(shape[1]), device="cpu")
+    params = one.init(torch.Generator().manual_seed(0))
+    loss, grads = loss_and_grads(one.loss_fn, params, batch)
+    p32 = tree_map(lambda t: t.float(), params)
+    want, _, _ = opt.adafactor_update(grads, opt.adafactor_init(p32), p32,
+                                      lr=R.ADAFACTOR_LR)
+    before = dict(flatten_with_paths(p32))
+    worst = 0.0
+    for path, w in flatten_with_paths(want):
+        step = (w - before[path]).numpy()
+        got = ranks[0]["opt"][path] - before[path].numpy()
+        worst = max(worst, float(np.abs(got - step).max()
+                                 / np.abs(step).max()))
+    print(f"adafactor on {shape}: updates within {worst:.2e} of the one "
+          f"device's largest")
+    assert worst <= 1e-5
+    step, opt_init = make_train_step(one, TrainConfig(
+        optimizer="adafactor", lr=R.ADAFACTOR_LR, warmup_steps=0,
+        total_steps=10))
+    new, _, metrics = step(params, opt_init(params), batch)
+    assert abs(ranks[0]["loss"] - float(metrics["loss"])) < 1e-3
+    rounds = {p: _bf16_rounds(ranks[0]["step"][p], w.float().numpy())
+              for p, w in flatten_with_paths(new)}
+    print(f"a step's params: {max(rounds.values()):.3f} roundings")
+    assert max(rounds.values()) <= GRAD_ROUNDINGS, rounds
+    # the factors' sums over the splitting axes
+    assert ("psum", ("model",)) in _calls(ranks[0]["record"], "float32")
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium",
+                                  "xlstm-125m"])
+def test_families_left_for_later_keep_whole_dense_leaves(arch):
+    """hymba, encdec and xlstm split no dense leaf yet: on each rank of a
+    (1, 4) mesh their params are the one device's (padded by 4) whole, bit
+    for bit, and so are their prefill logits."""
+    from repro_torch.distributed.sharding import serve_rules
+    cfg = R.config(arch)
+    one = build_model(cfg.padded_config(4), device="cpu")
+    params = one.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            (rng.normal(size=(2, 8, cfg.d_model)) * 0.02).astype(np.float32))
+    with torch.no_grad():
+        want = one.prefill(params, batch, max_len=24)[0]
+    for r in range(4):
+        m = build_model(cfg, device="cpu", mesh=_rank_mesh((1, 4), r),
+                        rules=serve_rules(False))
+        assert not m.extras.get("param_specs")
+        got = dict(flatten_with_paths(m.init(torch.Generator().manual_seed(0))))
+        for path, leaf in flatten_with_paths(params):
+            assert torch.equal(got[path], leaf), path
+        with torch.no_grad():
+            assert torch.equal(m.prefill(params, batch, max_len=24)[0], want)
 
 
 @pytest.mark.parametrize("arch,rules", [
