@@ -36,8 +36,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    after a ``torch.matmul`` captured in one CUDA graph, its programmatic
    edges counted and its replay equal to the eager run bit for bit; the
    host's split of one eager RMSNorm call (wrapper Python, allocation,
-   stream lookup, the launch call); decode and flash at phase 16e-f's
-   tensor-parallel rank shapes (``TP_CASES``: 4 / 1 and 8 / 1 heads of 64);
+   stream lookup, the launch call); decode and flash at phase 16e-j's
+   tensor-parallel rank shapes (``TP_CASES``: smollm's 4 / 1 and 8 / 1
+   heads of 64, hymba's 7 / 1 and 13 / 1 (G = 13, two head groups),
+   seamless's 4 / 4), ``ssd_scan`` at hymba's ranks' 7 and 13 heads;
 2b. the Clipper frontend stack: every named scenario with its selection
    state on the card and on the CPU, reports equal byte for byte (wall ms
    of each, policy-state device-to-host copies per query); a 1,048,576 x 4
@@ -218,10 +220,23 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    smollm-360m cut to ``POD_LAYERS`` layers on (data 2, model 2) under
    ``train_rules`` (dense TP, ``fsdp`` over data): gradients within
    ``SHARD_GRAD_ROUNDINGS``, AdamW and Adafactor on the one device's
-   gradients within ``OPT_RTOL`` of its update, a step of each timed; the
-   kernels' launches (counts set to 0 before each path, read after, the
-   ranks' summed) are the ``"sharded"`` path; phase 2 holds flash at the
-   context-parallel shapes first (``CP_CASES``);
+   gradients within ``OPT_RTOL`` of its update, a step of each timed;
+   16h full-width hymba-1.5b (32 layers) at ``padded(4)`` head parallel
+   over (1, 4) (x_r ‖ z_r and B_r ‖ C_r a rank) served through
+   ``LMServer``, 8 requests of 32-128 tokens: prefill logits within
+   ``LOGIT_TOL`` of the one device's and at most ``ANCHOR_RATIO`` times
+   as far from an fp32 CPU prefill, a rank's bytes its share, greedy
+   streams and report the one device's (partings only where the ranks'
+   row explains them); 16i hymba cut to 4 layers at ``padded(2)`` (G =
+   13) over (data 2, model 2) with ``fsdp`` over data, the data rows
+   prefilling together; 16j seamless-m4t-medium (12 + 12 layers) at
+   ``padded(4)`` over (1, 4), a prefill of 8 x 128 tokens over 8 x 1024
+   frames and 8 decode steps fed the one device's tokens, each step's
+   logits within ``LOGIT_TOL``; 16k one ``train_rules`` step of
+   xlstm-125m and of the hymba cut on (data 2, model 2), gradients under
+   16g's rule; the kernels' launches (counts set to 0 before each path,
+   read after, the ranks' summed) are the ``"sharded"`` path; phase 2
+   holds flash at the context-parallel shapes first (``CP_CASES``);
 17. print the figures, the card's name and power limit, one ``kernels`` JSON
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -483,7 +498,7 @@ def _rmsnorm_case(dev, randn, n, d, residual, offset=0):
 def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
     import torch
     from repro_torch.kernels.decode_attention.decode_attention import (
-        block_warps, cluster_size)
+        block_warps, cluster_size, head_groups)
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_op, decode_attention_work)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -500,11 +515,12 @@ def _decode_case(dev, randn, B, Hq, Hkv, D, Smax, window, lengths):
     lo = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
     mask = ((pos[None] < ln[:, None])
             & (pos[None] >= lo[:, None]))[:, None, None, :]
-    c = cluster_size(B, Hkv, Smax, window)
+    rows = Hkv * head_groups(Hq // Hkv)
+    c = cluster_size(B, rows, Smax, window)
     return dict(
         case=case, max_abs_err=err,
-        geometry=f"cluster C={c}, grid ({c}, {Hkv}, {B}) = "
-                 f"{c * Hkv * B} blocks of "
+        geometry=f"cluster C={c}, grid ({c}, {rows}, {B}) = "
+                 f"{c * rows * B} blocks of "
                  f"{block_warps(Smax, window, c)} warps",
         bound=kernel_bound(decode_attention_work(
             B, Hq, Hkv, D, Smax, window=window, lengths=lengths)),
@@ -664,15 +680,39 @@ CP_CASES = [dict(B=2, S=512, Hq=15, Hkv=5, D=64, lens=None, Sk=2048,
 # holds 4 q heads and 1 kv head a rank (G = 4, D = 64), at padded(2) on
 # (data 2, model 2) 8 q heads and 1 kv head (G = 8) and 4 slots a data row;
 # decode over 8 slots at lengths 0-256, flash over an 8 x 256 prefill,
-# ragged
+# ragged.
+# Phase 16h-j's ranks: hymba-1.5b at padded(4) holds 7 q heads and 1 kv
+# head a rank (G = 7), at padded(2) on (data 2, model 2) 13 and 1 (G = 13,
+# two head groups); decode on the 2048-slot ring (counts min(len + 1,
+# 2048)) and on the 512-slot global cache of 16h-i's servers, over 8 slots
+# (16h) and a data row's 4 (16i); flash on the rung-128 prefill (window
+# 2048, ragged), 8 rows (16i's data rows prefill the whole rung together).
+# seamless-m4t-medium at padded(4): 4 / 4 heads a rank, the encoder's
+# non-causal flash over 8 x 1024 frames, the decoder's self (rung 128)
+# and cross-attention (128 rows over 1024), decode against the self cache
+# and the 1024-row memory
 TP_CASES = {
     "decode_attention": [
         (8, 4, 1, 64, 256, 0, [0, 1, 37, 128, 200, 255, 256, 64]),
-        (4, 8, 1, 64, 256, 0, [0, 100, 256, 31])],
+        (4, 8, 1, 64, 256, 0, [0, 100, 256, 31]),
+        (8, 7, 1, 64, 2048, 0, [33, 65, 97, 129, 33, 65, 97, 129]),
+        (8, 7, 1, 64, 512, 0, [33, 64, 100, 129, 40, 80, 140, 60]),
+        (4, 13, 1, 64, 2048, 0, [33, 65, 97, 129]),
+        (4, 13, 1, 64, 512, 0, [33, 64, 100, 129]),
+        (8, 4, 4, 64, 256, 0, [129, 130, 131, 132, 133, 134, 135, 136]),
+        (8, 4, 4, 64, 1024, 0, [1024] * 8)],
     "flash_attention": [
         dict(B=8, S=256, Hq=4, Hkv=1, D=64,
              lens=[256, 200, 129, 256, 131, 140, 250, 180]),
-        dict(B=4, S=256, Hq=8, Hkv=1, D=64, lens=[256, 200, 129, 31])],
+        dict(B=4, S=256, Hq=8, Hkv=1, D=64, lens=[256, 200, 129, 31]),
+        dict(B=8, S=128, Hq=7, Hkv=1, D=64, window=2048,
+             lens=[32, 64, 128, 32, 64, 128, 32, 64]),
+        dict(B=8, S=128, Hq=13, Hkv=1, D=64, window=2048,
+             lens=[32, 64, 128, 128, 32, 64, 128, 128]),
+        dict(B=8, S=1024, Hq=4, Hkv=4, D=64, lens=None, causal=False),
+        dict(B=8, S=128, Hq=4, Hkv=4, D=64, lens=None, causal=False,
+             Sk=1024),
+        dict(B=8, S=128, Hq=4, Hkv=4, D=64, lens=None)],
 }
 
 # the launch cells' new lengths (phase 14), held against the plain versions
@@ -1072,7 +1112,9 @@ def scan_cases(dev):
     the normalizer's ones column (dv=385); and at hymba's (25 heads,
     dk = ssm_state = 16, dv = head_dim = 64, softplus dt gates): (f) a
     padded B=8 rung-2048 prefill in 8 chunks from a nonzero state, (g) the
-    exact 3072-token prompt, B=1, 12 chunks."""
+    exact 3072-token prompt, B=1, 12 chunks; at its tensor-parallel ranks'
+    (phase 16h-i): (h) 7 heads (padded(4) over 4 ranks) and (i) 13 heads
+    (padded(2) over 2), a padded B=8 rung-128 prefill from a zero state."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_op, ssd_scan_work
@@ -1086,7 +1128,7 @@ def scan_cases(dev):
     lens = {8: [8], 256: [256, 200, 129, 256, 131, 140, 250, 180],
             512: [512, 300, 257, 480, 90, 512, 400, 333],
             2048: [2048, 1600, 1030, 2048, 600, 1280, 2040, 2035],
-            3072: [3072]}
+            3072: [3072], 128: [32, 64, 128, 32, 64, 128, 32, 64]}
     rows = []
     for tag, B, S, H, hd, dv, state in (
             ("a", 8, 256, 4, 384, 384, "zero"),
@@ -1095,7 +1137,9 @@ def scan_cases(dev):
             ("d", 1, 8, 4, 384, 384, "zero"),
             ("e", 8, 256, 4, 384, 385, "zero"),
             ("f", 8, 2048, 25, 16, 64, "random"),
-            ("g", 1, 3072, 25, 16, 64, "zero")):
+            ("g", 1, 3072, 25, 16, 64, "zero"),
+            ("h", 8, 128, 7, 16, 64, "zero"),
+            ("i", 8, 128, 13, 16, 64, "zero")):
         def randn(shape, scale=1.0):
             return torch.randn(shape, generator=gen, device=dev) * scale
 
@@ -4051,6 +4095,7 @@ def _sharded_rank(rank, p):
     lap("16d")
     out.update(_tp_train_rank(p, dev))
     lap("16g")
+    out.update(_family_rank(p, mesh, lap))
     return out
 
 
@@ -4146,16 +4191,18 @@ def _tp_serve_rank(p, mesh, lap):
     return out
 
 
-def _tp_served(key, model, params, p, rec):
-    """16e-f's server on a rank: the streams, the engine report, the
-    kernels' launches, the rank's logits rows where its streams part from
-    the one device's (``p[key + "_want"]``), its slots, and each eager
-    decode step's ms and collectives, timed in the same run (the host
-    clock around a synchronised step)."""
+def _tp_served(key, model, params, p, rec, prompts=None):
+    """16e-f's server on a rank (and 16h-i's, over ``prompts``): the
+    streams, the engine report, the kernels' launches, the rank's logits
+    rows where its streams part from the one device's (``p[key +
+    "_want"]``), its slots, and each eager decode step's ms and
+    collectives, timed in the same run (the host clock around a
+    synchronised step)."""
     steps, rows = [], {}
     _zero_counts()
     streams, report, srv = _sim_server(
-        model, params, p["tp_prompts"], rows=rows,
+        model, params, p["tp_prompts"] if prompts is None else prompts,
+        rows=rows,
         setup=lambda srv: _step_timer(srv, rec, steps))
     out = {f"{key}_streams": streams, f"{key}_report": report,
            f"{key}_counts": _counts(),
@@ -4249,6 +4296,441 @@ def _tp_train_rank(p, dev):
     out["tg_counts"] = _counts()
     torch.cuda.empty_cache()
     return out
+
+
+# 16h-k: hymba, the encoder-decoder and xlstm placed as the decoder-only
+# families are (dense TP over model, fsdp over data in training)
+FAM_PROMPTS = SHARD_PROMPTS           # 16h-i's requests: 32-128 tokens
+FAM_FRAMES, FAM_TEXT, FAM_STEPS = 1024, 128, 8   # 16j's prefill and decode
+FAM_LAYERS = 4                        # 16i and 16k's hymba cut (one global)
+
+
+def _hymba_cut():
+    """hymba-1.5b cut to ``FAM_LAYERS`` layers, the first global and the
+    rest one sliding-window segment: every layer kind at full width."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHITECTURES
+    return dataclasses.replace(ARCHITECTURES["hymba-1.5b"],
+                               num_layers=FAM_LAYERS, global_layers=(0,))
+
+
+def _rank_weight_bytes(model, whole):
+    """The bytes a rank of ``model`` should hold of the one-device params
+    ``whole``: each leaf ``model`` splits (``param_specs``) divided by the
+    ranks its spec names, the rest whole."""
+    from repro_torch.tree import flatten_with_paths
+    mesh = model.extras["mesh"]
+    specs = model.extras["param_specs"]
+    total = 0
+    for path, t in flatten_with_paths(whole):
+        n = t.numel() * t.element_size()
+        ways = mesh.size([a for e in specs.get(path, ()) for a in
+                          ((e,) if isinstance(e, str) else e or ())])
+        total += n // ways
+    return total
+
+
+def _grad_rounds(grads, one, exact, gmax):
+    """{path: max |g - one| in bf16 ulps (2**-7) of the one device's
+    largest |g|} of a rank's gradient blocks against the one device's
+    (``one``, cut to the rank's blocks), and for each leaf past
+    ``SHARD_GRAD_ROUNDINGS`` its distance from the fp32 step's (``exact``)
+    over the one device's (16g's rule), the distances taken over the whole
+    block (L2): hymba's gate leaves hold 3-78 values a rank, where the
+    ratio of two largest elements is mostly noise."""
+    from repro_torch.tree import flatten_with_paths
+    one, exact = dict(flatten_with_paths(one)), dict(flatten_with_paths(exact))
+    rounds, anchor = {}, {}
+    for path, g in flatten_with_paths(grads):
+        if not bool(g.float().isfinite().all()):
+            raise AssertionError(f"gradient {path}: non-finite on a rank")
+        rounds[path] = float((g.float() - one[path].float()).abs().max()
+                             / max(gmax[path] * BF16_ULP, 1e-30))
+        if rounds[path] > SHARD_GRAD_ROUNDINGS:
+            anchor[path] = float(
+                (g.float() - exact[path].float()).norm()
+                / (one[path].float() - exact[path].float()).norm()
+                .clamp_min(1e-30))
+    return rounds, anchor
+
+
+def _family_references(dev, rng):
+    """16h-k's one-device sides, on the card: the weights (seeded), the
+    inputs, and what the ranks are held to. -> (payload entries for the
+    ranks, what the checks read)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.sampler import sample
+    from repro_torch.training.grad_compress import loss_and_grads
+    from repro_torch.tree import flatten_with_paths
+
+    t0 = time.perf_counter()
+    pay, ref = {}, {}
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    with torch.no_grad():
+        # 16h: full-width hymba-1.5b at padded(4), served eagerly
+        cfg = ARCHITECTURES["hymba-1.5b"].padded_config(SHARD_RANKS)
+        one = build_model(cfg, device=dev)
+        params = one.init(gen())
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in FAM_PROMPTS]
+        toks = torch.from_numpy(np.stack([q[:32] for q in prompts])).to(dev)
+        logits = one.prefill(params, {"tokens": toks})[0]
+        rows = {}
+        want, report, _ = _sim_server(one, params, prompts, eager=True,
+                                      rows=rows)
+        pay.update(h_cfg=cfg, h_params=params, h_prompts=prompts,
+                   h_toks=toks, h_logits=logits, h_want=want)
+        ref.update(h_cfg=cfg, h_params=params, h_toks=toks, h_logits=logits,
+                   h_want=want, h_rows=rows, h_report=report)
+        # 16i: the cut at padded(2), served eagerly
+        cfg = _hymba_cut().padded_config(2)
+        one = build_model(cfg, device=dev)
+        params = one.init(gen())
+        logits = one.prefill(params, {"tokens": toks})[0]
+        rows = {}
+        want, report, _ = _sim_server(one, params, prompts, eager=True,
+                                      rows=rows)
+        pay.update(i_cfg=cfg, i_params=params, i_logits=logits, i_want=want)
+        ref.update(i_cfg=cfg, i_want=want, i_rows=rows, i_report=report)
+        # 16j: seamless-m4t-medium at padded(4): a prefill of 8 x 128
+        # tokens over 8 x 1024 frames and 8 greedy decode steps, the
+        # logits of each
+        cfg = ARCHITECTURES["seamless-m4t-medium"].padded_config(SHARD_RANKS)
+        one = build_model(cfg, device=dev)
+        params = one.init(gen())
+        frames = (torch.randn((8, FAM_FRAMES, cfg.d_model), generator=gen(),
+                              device=dev) * 0.02)
+        text = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (8, FAM_TEXT)).astype(np.int32)).to(dev)
+        steps, fed = _encdec_steps(one, params, frames, text, None, sample)
+        pay.update(j_cfg=cfg, j_params=params, j_frames=frames, j_text=text,
+                   j_fed=fed, j_steps=steps)
+        ref.update(j_cfg=cfg, j_params=params, j_steps=steps, j_fed=fed)
+    # 16k: one train_rules step of xlstm-125m and of the hymba cut at
+    # padded(2): the one device's gradients, in bf16 and in fp32
+    batch = {k: torch.from_numpy(rng.integers(
+        0, 50304, (POD_BATCH, POD_SEQ)).astype(np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    pay["k_batch"] = batch
+    for key, cfg, params in (
+            ("kx", ARCHITECTURES["xlstm-125m"].padded_config(2), None),
+            ("kh", pay["i_cfg"], pay["i_params"])):
+        one = build_model(cfg, device=dev)
+        if params is None:
+            params = one.init(gen())
+        b = {k: v % cfg.vocab_size for k, v in batch.items()}
+        _, grads = loss_and_grads(one.loss_fn, params, b)
+        _, exact = loss_and_grads(
+            build_model(cfg, device=dev, dtype=torch.float32).loss_fn,
+            _tree_to(params, torch.float32), b)
+        pay.update({f"{key}_cfg": cfg, f"{key}_params": params,
+                    f"{key}_grads": grads, f"{key}_exact": exact,
+                    f"{key}_gmax": {k: float(g.abs().max()) for k, g in
+                                    flatten_with_paths(grads)}})
+        ref[f"{key}_cfg"] = cfg
+    log(f"16h-k one-device references: {time.perf_counter() - t0:.1f} s")
+    return pay, ref
+
+
+def _encdec_steps(model, params, frames, text, fed, sample):
+    """The encoder-decoder's prefill of ``text`` over ``frames`` and
+    ``FAM_STEPS`` decode steps -> (the full-vocab logits of each, on the
+    card, fp32; the tokens fed). ``fed`` None: each step feeds the greedy tokens
+    of the logits before it (the one device); else those tokens (the ranks,
+    so that every step's logits answer the same inputs)."""
+    import torch
+    logits, cache = model.prefill(params, {"frames": frames, "tokens": text},
+                                  max_len=FAM_TEXT + FAM_STEPS + 1)
+    logits = _full_logits(model, logits)
+    lengths = cache["lengths"].clone()
+    out, feed = [logits.float()], []
+    for i in range(FAM_STEPS):
+        tok = (sample(logits, None, temperature=0.0) if fed is None
+               else fed[i])
+        feed.append(tok)
+        logits, cache = model.decode_step(params, cache, tok[:, None],
+                                          lengths)
+        logits = _full_logits(model, logits)
+        lengths = lengths + 1
+        out.append(logits.float())
+    torch.cuda.synchronize()
+    return out, feed
+
+
+def _family_rank(p, mesh, lap):
+    """Phases 16h-k on one rank: hymba-1.5b served over (1, 4) (16h), the
+    hymba cut served over (data 2, model 2) with fsdp over data (16i),
+    seamless-m4t-medium's prefill and decode steps over (1, 4) (16j), and
+    a train_rules step of xlstm-125m and the hymba cut on (data 2, model 2)
+    (16k)."""
+    import torch
+    from repro_torch.bridge import params_for_rank
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.sampler import sample
+    from repro_torch.training.grad_compress import loss_and_grads
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    out = {}
+    mesh22 = make_mesh((2, 2), ("data", "model"), device=mesh.world.device,
+                       share=True)
+    with torch.no_grad():
+        # h: hymba-1.5b, 32 layers at padded(4), over (1, 4)
+        model = build_model(p["h_cfg"], mesh=mesh,
+                            rules=sh.serve_rules(False))
+        local = params_for_rank(p["h_params"], model)
+        out["h_bytes"] = (_weight_bytes(local),
+                          _rank_weight_bytes(model, p["h_params"]))
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = _full_logits(model, model.prefill(
+            local, {"tokens": p["h_toks"]})[0])
+        torch.cuda.synchronize()
+        out["h_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["h_logits_rel"] = _rel(logits, p["h_logits"])
+        out["h_logits"] = logits.float().cpu().numpy()
+        out.update(_tp_served("h", model, local, p, mesh.world.record,
+                              prompts=p["h_prompts"]))
+        del model, local, logits
+        torch.cuda.empty_cache()
+        lap("16h")
+        # i: the hymba cut at padded(2) over (data 2, model 2), its leaves
+        # stored over data as well (the data rows prefill together)
+        rules = dict(sh.serve_rules(False), fsdp="data")
+        model = build_model(p["i_cfg"], mesh=mesh22, rules=rules)
+        local = params_for_rank(p["i_params"], model)
+        out["i_bytes"] = (_weight_bytes(local),
+                          _rank_weight_bytes(model, p["i_params"]))
+        rows = sh.rank_rows({"tokens": p["h_toks"]}, mesh22, rules["batch"])
+        logits = _full_logits(model, model.prefill(local, rows)[0])
+        d = mesh22.world.coords["data"]
+        half = p["h_toks"].shape[0] // 2
+        out["i_logits_rel"] = _rel(logits,
+                                   p["i_logits"][d * half:(d + 1) * half])
+        out.update(_tp_served("i", model, local, p, mesh22.world.record,
+                              prompts=p["h_prompts"]))
+        out["i_joint"] = _server_joint(model)
+        del model, local, logits
+        torch.cuda.empty_cache()
+        lap("16i")
+        # j: seamless-m4t-medium, 12 + 12 layers at padded(4), over (1, 4)
+        model = build_model(p["j_cfg"], mesh=mesh,
+                            rules=sh.serve_rules(False))
+        local = params_for_rank(p["j_params"], model)
+        out["j_bytes"] = (_weight_bytes(local),
+                          _rank_weight_bytes(model, p["j_params"]))
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps, _ = _encdec_steps(model, local, p["j_frames"], p["j_text"],
+                                 p["j_fed"], sample)
+        out["j_ms"] = (time.perf_counter() - t0) * 1e3
+        out["j_counts"] = _counts()
+        out["j_steps"] = [t.cpu().numpy() for t in steps] if \
+            mesh.world.rank == 0 else None
+        out["j_rel"] = [_rel(g, w) for g, w in zip(steps, p["j_steps"])]
+        del model, local, steps
+        torch.cuda.empty_cache()
+        lap("16j")
+    # k: one train_rules step each, on (data 2, model 2)
+    rules = sh.train_rules(False)
+    for key in ("kx", "kh"):
+        cfg = p[f"{key}_cfg"]
+        model = build_model(cfg, mesh=mesh22, rules=rules)
+        specs = model.extras["param_specs"]
+        params = params_for_rank(p[f"{key}_params"], model)
+        batch = sh.rank_rows({k: v % cfg.vocab_size
+                              for k, v in p["k_batch"].items()},
+                             mesh22, rules["batch"])
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model.loss_fn, params, batch,
+                                     mesh=mesh22, param_specs=specs)
+        torch.cuda.synchronize()
+        out[f"{key}_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{key}_rounds"], out[f"{key}_anchor"] = _grad_rounds(
+            grads, params_for_rank(p[f"{key}_grads"], model),
+            params_for_rank(p[f"{key}_exact"], model), p[f"{key}_gmax"])
+        out[f"{key}_split"] = sorted(specs)
+        del grads
+        step, opt_init = make_train_step(model, TrainConfig())
+        state = opt_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        out[f"{key}_step"] = ((time.perf_counter() - t0) * 1e3,
+                              float(loss), float(metrics["loss"]))
+        out[f"{key}_counts"] = _counts()
+        del model, params, state
+        torch.cuda.empty_cache()
+    lap("16k")
+    return out
+
+
+def _server_joint(model):
+    """Whether a server of ``model`` over its mesh makes the data rows
+    prefill together (``SlotLayout.joint``)."""
+    from repro_torch.serving.engine import SlotLayout
+    return SlotLayout(model, model.extras["mesh"], 8).joint
+
+
+def _check_family_ranks(ranks, ref, counts):
+    """Phases 16h-k's checks on every rank, then their log lines; adds the
+    serving sub-phases' launches to ``counts``."""
+    import numpy as np
+    r0 = ranks[0]
+    tol_h = LOGIT_TOL["hymba-1.5b"]
+    anchor = _fp32_anchor(ref["h_cfg"], ref["h_params"], ref["h_toks"],
+                          ref["h_logits"])
+    h_anchor = max(anchor(o["h_logits"]) for o in ranks)
+    for r, out in enumerate(ranks):
+        for key, label in (("h", "16h"), ("i", "16i"), ("j", "16j")):
+            got, want = out[f"{key}_bytes"]
+            if got != want:
+                raise AssertionError(f"{label} rank {r}: {got} B of weights, "
+                                     f"not its share ({want} B)")
+        if out["h_logits_rel"] > tol_h or h_anchor > ANCHOR_RATIO:
+            raise AssertionError(f"16h rank {r}: prefill logits "
+                                 f"{out['h_logits_rel']} of the largest off "
+                                 f"the one device's (limit {tol_h}), "
+                                 f"{h_anchor} times as far from the fp32 "
+                                 f"prefill (limit {ANCHOR_RATIO})")
+        if out["i_logits_rel"] > tol_h:
+            raise AssertionError(f"16i rank {r}: prefill logits "
+                                 f"{out['i_logits_rel']} off (limit {tol_h})")
+        if not out["i_joint"]:
+            raise AssertionError(f"16i rank {r}: the data rows did not "
+                                 f"prefill together")
+        for key, label in (("h", "16h"), ("i", "16i")):
+            if out[f"{key}_streams"] != r0[f"{key}_streams"]:
+                raise AssertionError(f"{label} rank {r}: streams differ from "
+                                     f"rank 0's")
+            mine = out[f"{key}_part_rows"]
+            _tp_partings(f"{label} rank {r}",
+                         {rid: ref[f"{key}_want"][rid] for rid in mine},
+                         {rid: out[f"{key}_streams"][rid] for rid in mine},
+                         ref[f"{key}_rows"], mine, tol=tol_h)
+            rep = dict(out[f"{key}_report"])
+            rep.pop("mesh")
+            if rep != ref[f"{key}_report"]:
+                raise AssertionError(f"{label} rank {r}: engine report {rep} "
+                                     f"vs the one device's "
+                                     f"{ref[key + '_report']}")
+            for k in ("rmsnorm", "decode_attention", "flash_attention",
+                      "ssd_scan"):
+                if not out[f"{key}_counts"][k]:
+                    raise AssertionError(f"{label} rank {r}: {k} never "
+                                         f"launched")
+        if max(out["j_rel"]) > LOGIT_TOL["seamless-m4t-medium"]:
+            raise AssertionError(f"16j rank {r}: logits of the prefill and "
+                                 f"decode steps {out['j_rel']} of the "
+                                 f"largest off the one device's (limit "
+                                 f"{LOGIT_TOL['seamless-m4t-medium']})")
+        for k in ("rmsnorm", "decode_attention", "flash_attention"):
+            if not out["j_counts"][k]:
+                raise AssertionError(f"16j rank {r}: {k} never launched")
+        for key, label in (("kx", "xlstm-125m"), ("kh", "hymba cut")):
+            for path, ratio in out[f"{key}_anchor"].items():
+                if ratio > ANCHOR_RATIO:
+                    raise AssertionError(
+                        f"16k {label} rank {r}: gradient {path} "
+                        f"{out[f'{key}_rounds'][path]} bf16 ulps off the "
+                        f"one device's (limit {SHARD_GRAD_ROUNDINGS}), "
+                        f"{ratio} times as far from the fp32 step's (limit "
+                        f"{ANCHOR_RATIO})")
+            if any(out[f"{key}_counts"].values()):
+                raise AssertionError(f"16k rank {r}: training launched "
+                                     f"kernels {out[key + '_counts']}")
+        for key in ("h_counts", "i_counts", "j_counts"):
+            for k, n in out[key].items():
+                counts[k] += n
+    # 16j's streams: where a rank's greedy choice parts from the one
+    # device's token, the one device's two logits lie within twice the
+    # rows' difference (16b's rule)
+    j_part = []
+    for i, (g, w) in enumerate(zip(r0["j_steps"], ref["j_steps"])):
+        w = w.cpu().numpy()
+        top = np.abs(w).max(-1)
+        for b in np.nonzero(g.argmax(-1) != w.argmax(-1))[0]:
+            a, c = int(w[b].argmax()), int(g[b].argmax())
+            gap = float((w[b, a] - w[b, c]) / top[b])
+            diff = float(np.abs(g[b] - w[b]).max() / top[b])
+            j_part.append((i, int(b), gap, diff))
+            if gap > 2 * diff:
+                raise AssertionError(f"16j step {i} row {b}: the ranks' "
+                                     f"token parts from the one device's "
+                                     f"not at a near-tie ({gap}, {diff})")
+    h_part = _tp_partings("16h", ref["h_want"], r0["h_streams"],
+                          ref["h_rows"], r0["h_part_rows"], check=False,
+                          tol=tol_h)
+    i_rows = {}
+    for o in ranks:
+        i_rows.update(o["i_part_rows"])
+    i_part = _tp_partings("16i", ref["i_want"], r0["i_streams"],
+                          ref["i_rows"], i_rows, check=False, tol=tol_h)
+    hc, ic, jc = ref["h_cfg"], ref["i_cfg"], ref["j_cfg"]
+    log(f"16h hymba-1.5b, {hc.num_layers} layers at padded({SHARD_RANKS}) "
+        f"({hc.num_heads} / {hc.num_kv_heads} heads, "
+        f"{hc.num_heads // SHARD_RANKS} / {hc.num_kv_heads // SHARD_RANKS} a "
+        f"rank, G = {hc.num_heads // hc.num_kv_heads}), dense TP over (1, "
+        f"{SHARD_RANKS}): prefill logits within "
+        f"{max(o['h_logits_rel'] for o in ranks):.4g} of the largest (limit "
+        f"{tol_h}), {h_anchor:.3f} times as far from an fp32 CPU prefill as "
+        f"the one device (limit {ANCHOR_RATIO}), {r0['h_prefill_ms']:.1f} ms "
+        f"(8 x 32 tokens, rank 0); {r0['h_bytes'][0]} B of weights a rank; "
+        f"{len(ref['h_want']) - len(h_part)} of {len(ref['h_want'])} greedy "
+        f"streams equal to the one device's (the rest (request, step, gap, "
+        f"row difference) / largest |logit| {h_part}), the engine report its "
+        f"own but the mesh; launches a rank {r0['h_counts']}; eager ms a "
+        f"step with {r0['h_step']['busy']} slots busy "
+        f"{r0['h_step']['ms']:.3f} (median of {r0['h_step']['n']}; "
+        f"host-staged gloo collectives on one card, not a multi-card "
+        f"figure), collectives a step {r0['h_step']['calls']}, staged "
+        f"{r0['h_step']['staged']:.0f} B")
+    log(f"16i hymba cut to {ic.num_layers} layers (global {ic.global_layers}) "
+        f"at padded(2) ({ic.num_heads} / {ic.num_kv_heads} heads, G = "
+        f"{ic.num_heads // ic.num_kv_heads}) over (data 2, model 2), "
+        f"serve_rules with fsdp over data (the data rows prefill together): "
+        f"prefill logits within {max(o['i_logits_rel'] for o in ranks):.4g} "
+        f"of the largest; {r0['i_bytes'][0]} B of weights a rank; "
+        f"{len(ref['i_want']) - len(i_part)} of {len(ref['i_want'])} greedy "
+        f"streams equal to the one device's (the rest {i_part}), the engine "
+        f"report its own but the mesh; launches a rank {r0['i_counts']}; "
+        f"eager ms a step with {r0['i_step']['busy']} slots busy "
+        f"{r0['i_step']['ms']:.3f}, collectives a step "
+        f"{r0['i_step']['calls']}")
+    log(f"16j seamless-m4t-medium {jc.num_layers} + {jc.num_layers} layers "
+        f"at padded({SHARD_RANKS}) ({jc.num_heads // SHARD_RANKS} / "
+        f"{jc.num_kv_heads // SHARD_RANKS} heads a rank) over (1, "
+        f"{SHARD_RANKS}): prefill of 8 x {FAM_TEXT} tokens over 8 x "
+        f"{FAM_FRAMES} frames and {FAM_STEPS} decode steps, logits within "
+        f"{max(max(o['j_rel']) for o in ranks):.4g} of the largest (limit "
+        f"{LOGIT_TOL['seamless-m4t-medium']}; by step "
+        f"{[round(x, 5) for x in r0['j_rel']]}), greedy choices parting "
+        f"from the one device's at (step, row, gap, row difference) "
+        f"{j_part}; {r0['j_ms']:.1f} ms on rank 0; {r0['j_bytes'][0]} B of "
+        f"weights a rank; launches a rank {r0['j_counts']}")
+    for key, cfg in (("kx", ref["kx_cfg"]), ("kh", ref["kh_cfg"])):
+        log(f"16k {cfg.name} {cfg.num_layers} layers at padded(2) on (data "
+            f"2, model 2), train_rules, batch {POD_BATCH} x {POD_SEQ}: "
+            f"gradients within "
+            f"{max(max(o[key + '_rounds'].values()) for o in ranks):.3f} "
+            f"bf16 ulps of each leaf's largest one-device value (limit "
+            f"{SHARD_GRAD_ROUNDINGS}; past it the ratio of L2 distances "
+            f"from the fp32 step's, limit {ANCHOR_RATIO}: "
+            f"{[o[key + '_anchor'] for o in ranks]}); loss and grads "
+            f"{r0[key + '_grad_ms']:.1f} ms, an AdamW step (ms, loss, step "
+            f"loss) {r0[key + '_step']}; {len(r0[key + '_split'])} leaves "
+            f"split")
 
 
 def sharded_phases(dev):
@@ -4365,7 +4847,9 @@ def sharded_phases(dev):
         tr2_grads, opt_lib.adafactor_init(p32), p32, lr=1e-3)[0]
     del p32
     log(f"16 one-device references: {time.perf_counter() - t0:.1f} s")
-    payload = dict(device="cuda", dbrx_cfg=cfg, dbrx_params=params,
+    fam_pay, fam_ref = _family_references(dev, rng)
+    payload = dict(**fam_pay,
+                   device="cuda", dbrx_cfg=cfg, dbrx_params=params,
                    toks=toks, streams=streams, route_prefill=route_prefill,
                    route_server=route_server,
                    ref_logits=ref_logits, prompts=prompts, sm_cfg=sm_cfg,
@@ -4401,6 +4885,8 @@ def sharded_phases(dev):
             out["tp_anchor"] = anchor(out["tp_logits"])
     _log_tp(ranks, sm_cfg, sm2_cfg, tr2_cfg, tp_want, dp_want, tp_rows,
             dp_rows)
+    _check_family_ranks(ranks, fam_ref, counts)
+    del fam_ref
     for r, out in enumerate(ranks):
         if out["experts"] != cfg.num_experts // SHARD_RANKS:
             raise AssertionError(f"16b rank {r}: {out['experts']} experts")
@@ -4497,13 +4983,13 @@ def sharded_phases(dev):
     return counts
 
 
-def _tp_partings(label, want, got, one_rows, rank_rows, check=True):
+def _tp_partings(label, want, got, one_rows, rank_rows, check=True,
+                 tol=TP_ROW_TOL):
     """(request, step, gap, row difference) where a rank's stream ``got``
     parts from the one device's ``want``, each / the largest |logit| of
     the one device's row there (``one_rows``, its eager run's): the ranks'
-    row (``rank_rows``) may lie at most ``TP_ROW_TOL`` from the one
-    device's, and the one device's two tokens at most twice that apart
-    (16b's rule)."""
+    row (``rank_rows``) may lie at most ``tol`` from the one device's, and
+    the one device's two tokens at most twice that apart (16b's rule)."""
     out = []
     for rid, k in _parting(want, got).items():
         one = one_rows[rid][k]
@@ -4512,7 +4998,7 @@ def _tp_partings(label, want, got, one_rows, rank_rows, check=True):
         gap = float((one[a] - one[b]) / top)
         diff = float(abs(rank_rows[rid] - one).max() / top)
         out.append((rid, k, gap, diff))
-        if check and (diff > TP_ROW_TOL or gap > 2 * diff):
+        if check and (diff > tol or gap > 2 * diff):
             raise AssertionError(f"{label} request {rid} parts at step {k}, "
                                  f"not where the ranks' logits explain it: "
                                  f"gap {gap}, row difference {diff}")

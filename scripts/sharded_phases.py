@@ -1,5 +1,5 @@
 """``chip_smoke.py`` phase 16 alone: the sharded paths on one card (16a an
-NCCL world of one rank; 16b-g four gloo ranks sharing the card), with the
+NCCL world of one rank; 16b-k four gloo ranks sharing the card), with the
 seconds each rank spent in each sub-phase.
 
     python3 scripts/sharded_phases.py

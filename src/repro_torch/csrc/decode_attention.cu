@@ -39,8 +39,14 @@
 //   keeps every block's shared memory alive until all have read it. No
 //   workspace, no atomics, no second launch; the caller picks C
 //   (<= 8, the portable cluster size; C = 1 launches without the cluster
-//   attribute). Any Smax, G <= 8, even D <= 128. A row
+//   attribute). Any Smax, G <= 16, even D <= 128. A row
 //   with no valid key (lengths == 0) outputs exactly 0.
+//   Above 8 query heads a kv head (hymba at model = 2: 26 / 2 heads, G = 13)
+//   the q heads of a kv head are cut into NG = ceil(G / 8) even groups
+//   (13 -> 7 + 6), one grid row each (grid (C, Hkv * NG, B)): each block
+//   keeps the registers of at most 8 heads, as every block did before, at
+//   the price of reading the kv head's K/V rows once per group. Where
+//   G <= 8, NG = 1 and the launch is the one it always was.
 //   Rounding: q * scale is rounded to bf16 before the dot products, as the
 //   jnp path (`models/common.py::attention_decode`) does; scores, m, l and
 //   acc are fp32 and p stays fp32 (the jnp path rounds p to bf16 before PV;
@@ -57,7 +63,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxWarps = 4;  // a block is 1, 2 or 4 warps, chosen by the caller
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;
+constexpr int kBlockG = 8;  // the most query heads one block takes
 constexpr int kMaxCluster = 8;
 
 // VW bf16 at p as floats (VW = 8: one 16-byte load; VW = 2: one 4-byte load)
@@ -85,8 +92,8 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
 }
 
 // VW: bf16 a vector load; NV: vectors a lane holds; MG: the most query heads
-// a kv head may have (4 or 8: the registers per head are fixed at compile
-// time). lpr lanes (a power of two, <= 32) own one K/V row: lane r of a row
+// a block may take (4 or 8: the registers per head are fixed at compile
+// time). Gall: query heads a kv head; NG: the groups they are cut into. lpr lanes (a power of two, <= 32) own one K/V row: lane r of a row
 // group holds columns (v * lpr + r) * VW .. + VW for v < NV.
 template <int VW, int NV, int MG>
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -95,14 +102,17 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v,
                         const int* __restrict__ lengths,
                         __nv_bfloat16* __restrict__ out,
-                        int Smax, int Hkv, int G, int D, int window, int lpr,
-                        float scale) {
+                        int Smax, int Hkv, int Gall, int NG, int D, int window,
+                        int lpr, float scale) {
   constexpr int E = VW * NV;        // columns a lane holds
   constexpr int U = MG <= 4 ? 4 : 2;  // rows in flight per lane group
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int C = (int)cluster.num_blocks();
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / NG;      // the kv head
+  const int Gb = (Gall + NG - 1) / NG;  // q heads a group
+  const int g0 = (blockIdx.y % NG) * Gb;  // this block's first q head of h
+  const int G = min(Gb, Gall - g0);     // and its count
   const int b = blockIdx.z;
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -110,7 +120,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int rpw = 32 / lpr;           // rows a warp reads at once
   const int lr = lane & (lpr - 1);
   const int ngrp = nwarps * rpw;      // row groups in the block
-  const int Hq = Hkv * G;
+  const int Hq = Hkv * Gall;
 
   // this block's slice of the sample's valid positions
   const int len = lengths[b];
@@ -135,7 +145,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < E; ++e) qf[g][e] = acc[g][e] = 0.f;
     if (g < G) {
-      const __nv_bfloat16* qr = q + ((size_t)b * Hq + (size_t)h * G + g) * D;
+      const __nv_bfloat16* qr = q + ((size_t)b * Hq + (size_t)h * Gall + g0 + g) * D;
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
         if (col[u] < D) {
@@ -313,7 +323,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < C) o += cluster.map_shared_rank(pacc, r)[idx] * wts[r * G + g];
-    out[((size_t)b * Hq + (size_t)h * G) * D + idx] = __float2bfloat16(o);
+    out[((size_t)b * Hq + (size_t)h * Gall + g0) * D + idx] = __float2bfloat16(o);
   }
   cluster.sync();  // no block leaves while another still reads its memory
 }
@@ -322,11 +332,13 @@ template <int VW, int NV, int MG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int Smax, int Hkv, int G, int D, int window,
            int lpr, float scale, int cluster, int warps, cudaStream_t s) {
+  const int NG = (G + kBlockG - 1) / kBlockG;
+  const int Gb = (G + NG - 1) / NG;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, Hkv, B);
+  cfg.gridDim = dim3(cluster, Hkv * NG, B);
   cfg.blockDim = dim3(warps * 32);
   cfg.dynamicSmemBytes =
-      (size_t)((warps + 1) * G * (D + 2) + kMaxCluster * G) * sizeof(float);
+      (size_t)((warps + 1) * Gb * (D + 2) + kMaxCluster * Gb) * sizeof(float);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -339,7 +351,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       &cfg, decode_attention_kernel<VW, NV, MG>,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), Smax, Hkv, G, D, window, lpr, scale);
+      static_cast<__nv_bfloat16*>(out), Smax, Hkv, G, NG, D, window, lpr, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -347,8 +359,9 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 }  // namespace
 
 // q [B, Hq, D], k/v [B, Smax, Hkv, D] bf16 contiguous, lengths [B] int32,
-// out [B, Hq, D] bf16. Launch geometry from the caller: cluster, the blocks
-// per (kv head, sample), 1..8, and warps, the warps per block, 1, 2 or 4.
+// out [B, Hq, D] bf16, G = Hq / Hkv <= 16. Launch geometry from the caller:
+// cluster, the blocks per (kv head, head group, sample), 1..8, and warps,
+// the warps per block, 1, 2 or 4.
 // Returns the cudaError_t of the launch.
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lengths,
@@ -362,7 +375,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool a16 = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  const bool g4 = G <= 4;
+  const int NG = (G + kBlockG - 1) / kBlockG;
+  const bool g4 = (G + NG - 1) / NG <= 4;
   if (D % 8 == 0 && a16) {
     int lpr = 1;
     while (lpr * 8 < D) lpr <<= 1;

@@ -54,17 +54,33 @@ class PartitionSpec(tuple):
     """Mesh axes per tensor dim: ``None``, an axis name or a tuple of
     names. A tuple of one name is that name and an empty one is ``None``,
     as ``jax.sharding.PartitionSpec`` normalizes them, so ``tuple(spec)``
-    equals ``tuple(jax.sharding.PartitionSpec(*dims))``."""
+    equals ``tuple(jax.sharding.PartitionSpec(*dims))``.
 
-    def __new__(cls, dims=()):
+    ``parts`` (per dim, 1 where not given) says a dim is that many equal
+    pieces side by side, each split over the dim's axes on its own: a
+    rank's block of the dim is its block of every piece, in order (hymba's
+    ``w_in``, x ‖ z, and ``w_bc``, B ‖ C, so a rank holds x_r ‖ z_r and
+    computes whole heads). :func:`block_slices` and :func:`gather_global`
+    are the one place that maps such a block to and from the global
+    tensor."""
+
+    def __new__(cls, dims=(), parts=()):
         def norm(d):
             if isinstance(d, tuple) and len(d) <= 1:
                 return d[0] if d else None
             return d
-        return super().__new__(cls, (norm(d) for d in dims))
+        self = super().__new__(cls, (norm(d) for d in dims))
+        self.parts = tuple(int(p) for p in parts)
+        return self
+
+    def part(self, dim: int) -> int:
+        """The number of pieces dim ``dim`` is made of."""
+        return self.parts[dim] if dim < len(self.parts) else 1
 
     def __repr__(self) -> str:
-        return f"PartitionSpec{tuple.__repr__(self)}"
+        extra = (f", parts={self.parts}" if any(p > 1 for p in self.parts)
+                 else "")
+        return f"PartitionSpec{tuple.__repr__(self)}{extra}"
 
 
 class ShardingContext:
@@ -394,11 +410,18 @@ def broadcast(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
 # a rank's block of a global tensor
 # ---------------------------------------------------------------------------
 
+def _spec_parts(spec, dim: int) -> int:
+    return spec.part(dim) if isinstance(spec, PartitionSpec) else 1
+
+
 def block_slices(shape: Sequence[int], spec: Sequence[AxisVal],
-                 mesh) -> Tuple[slice, ...]:
+                 mesh) -> Tuple[Any, ...]:
     """This rank's block of a global ``shape`` laid out by ``spec``: a dim
     split over a tuple of axes is split row-major over them, in the spec's
-    order (``P(("data", "model"))``: data-major)."""
+    order (``P(("data", "model"))``: data-major). A dim of ``parts > 1``
+    pieces (:class:`PartitionSpec`) gives the list of its indices: this
+    rank's block of each piece, piece after piece; every other dim a
+    slice."""
     out = []
     for i, size in enumerate(shape):
         entry = spec[i] if i < len(spec) else None
@@ -406,17 +429,28 @@ def block_slices(shape: Sequence[int], spec: Sequence[AxisVal],
         for a in norm_axes(entry):
             c = mesh.world.coords[a] if mesh.world is not None else 0
             idx, n = idx * mesh.shape[a] + c, n * mesh.shape[a]
-        if size % n:
+        parts = _spec_parts(spec, i)
+        if size % (n * parts):
             raise ValueError(f"dim {i} of {tuple(shape)} does not split "
-                             f"{n} ways by {tuple(spec)}")
-        b = size // n
-        out.append(slice(idx * b, (idx + 1) * b))
+                             f"{n} ways by {tuple(spec)} in {parts} parts")
+        b = size // (n * parts)
+        if parts == 1:
+            out.append(slice(idx * b, (idx + 1) * b))
+        else:
+            piece = size // parts
+            out.append([k * piece + idx * b + j for k in range(parts)
+                        for j in range(b)])
     return tuple(out)
+
+
+def block_extent(s) -> int:
+    """The length of one dim's entry of :func:`block_slices`."""
+    return s.stop - s.start if isinstance(s, slice) else len(s)
 
 
 def local_slice(x, spec: Sequence[AxisVal], mesh):
     """This rank's block of the global ``x`` (a tensor or numpy array; a
-    view where slicing gives one)."""
+    view where every dim's block is a slice)."""
     return x[block_slices(x.shape, spec, mesh)]
 
 
@@ -440,10 +474,26 @@ def rank_rows(tree, mesh, batch_rule, num_microbatches: int = 1):
     return {k: rows(v) for k, v in tree.items()}
 
 
+def gather_dim(x: torch.Tensor, axes: AxisVal, dim: int, *, parts: int = 1,
+               mesh=None) -> torch.Tensor:
+    """Dim ``dim`` of ``x`` whole over ``axes``: the ranks' blocks gathered
+    in rank order and, where the dim is ``parts`` pieces, put back piece
+    by piece (each rank's block holds its share of every piece)."""
+    names = norm_axes(axes)
+    for a in reversed(names):
+        x = all_gather(x, a, dim=dim, mesh=mesh)
+    n = _mesh_of(mesh).size(names) if names else 1
+    if parts > 1 and n > 1:
+        b = x.shape[dim] // (n * parts)
+        x = x.unflatten(dim, (n, parts, b)).transpose(dim, dim + 1) \
+             .flatten(dim, dim + 2)
+    return x
+
+
 def gather_global(x: torch.Tensor, spec: Sequence[AxisVal],
                   mesh) -> torch.Tensor:
-    """The global tensor from each rank's block ``x`` (every rank gets it)."""
+    """The global tensor from each rank's block ``x`` (every rank gets
+    it); the inverse of :func:`local_slice`."""
     for i, entry in enumerate(spec):
-        for a in reversed(norm_axes(entry)):
-            x = all_gather(x, a, dim=i, mesh=mesh)
+        x = gather_dim(x, entry, i, parts=_spec_parts(spec, i), mesh=mesh)
     return x

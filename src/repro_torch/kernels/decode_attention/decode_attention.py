@@ -20,15 +20,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 MAX_CLUSTER = 8       # the portable thread-block cluster size
+BLOCK_G = 8           # the most query heads one block takes
 SMS = 132             # streaming multiprocessors of an H100 SXM
 MIN_SLICE = 16        # fewest positions worth a block of their own
 ROWS_PER_WARP = 16    # positions a warp reads per step at D <= 64, G <= 4
 
 
+def head_groups(G: int) -> int:
+    """The groups the ``G`` query heads of a kv head are cut into, one grid
+    row each: ``ceil(G / BLOCK_G)``, of ``ceil(G / groups)`` heads but the
+    last (G = 13: 7 and 6), so that no block holds the registers of more
+    than ``BLOCK_G`` heads. 1 where G <= 8."""
+    return -(-G // BLOCK_G)
+
+
 def cluster_size(B: int, Hkv: int, Smax: int, window: int) -> int:
     """Blocks per (kv head, sample): the smallest power of two that puts two
     blocks on each SM, at most ``MAX_CLUSTER`` and at most one block per
-    ``MIN_SLICE`` positions of the longest range a sample can have."""
+    ``MIN_SLICE`` positions of the longest range a sample can have.
+    ``Hkv`` counts the grid's rows: kv heads times their head groups."""
     span = min(Smax, window) if window > 0 else Smax
     c = 1
     while (c < MAX_CLUSTER and c * B * Hkv < 2 * SMS
@@ -74,7 +84,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lengths: [B] int32. Launches on the current stream."""
     B, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
-    c = cluster_size(B, Hkv, Smax, window)
+    c = cluster_size(B, Hkv * head_groups(Hq // Hkv), Smax, window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), B, Smax, Hkv, Hq // Hkv,

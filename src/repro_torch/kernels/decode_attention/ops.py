@@ -1,7 +1,7 @@
 """Checked decode-attention entry point (model layout).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (any Smax, G <= 8, even D <= 128, bf16); meta tensors get an empty
+raise (any Smax, G <= 16, even D <= 128, bf16); meta tensors get an empty
 output. ``decode_attention_op.launches`` counts kernel launches;
 :func:`decode_attention_work` is a call's work."""
 
@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels import Work, counted, refuse_autograd, softmax_scale
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+MAX_G = 16      # query heads a kv head the kernel takes
 
 
 def decode_attention_work(B: int, Hq: int, Hkv: int, D: int, Smax: int, *,
@@ -68,9 +70,10 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_op: unsupported device {q.device}")
     refuse_autograd("decode_attention_op", q, k_cache, v_cache)
-    if Hq // Hkv > 8 or D % 2 or D > 128:
-        raise ValueError(f"decode_attention_op: the kernel takes G <= 8 and "
-                         f"even D <= 128; got G={Hq // Hkv} D={D}")
+    if Hq // Hkv > MAX_G or D % 2 or D > 128:
+        raise ValueError(f"decode_attention_op: the kernel takes G <= "
+                         f"{MAX_G} and even D <= 128; got G={Hq // Hkv} "
+                         f"D={D}")
     if any(t.dtype != torch.bfloat16 for t in (q, k_cache, v_cache)):
         raise TypeError("decode_attention_op: the kernel takes bf16 q, k, v")
     from repro_torch.kernels.decode_attention.decode_attention import (

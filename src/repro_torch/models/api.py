@@ -63,9 +63,12 @@ def build_model(cfg: ModelConfig, *, device="cuda",
     ``mesh`` (``launch.mesh`` over a ``torch.distributed`` world) and
     ``rules`` (``distributed.sharding``'s tables) build this rank's model,
     on the mesh's device: heads and vocab padded by ``cfg.padded(tp)`` in
-    every family; the transformer families also run their moe layers
-    expert parallel and their prefill context parallel where the rules
-    say so. Without a mesh, one device, as always."""
+    every family, and every family's leaves placed by the reference's
+    logical axes (``common.Placement``: dense tensor parallel over
+    ``model``, ``fsdp`` over ``data`` where the rules say so); the
+    transformer families also run their moe layers expert parallel and
+    their prefill context parallel where the rules say so. Without a
+    mesh, one device, as always."""
     from repro_torch.models import encdec, hymba, transformer, xlstm
 
     if (mesh is not None and mesh.world is not None

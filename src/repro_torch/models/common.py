@@ -46,7 +46,9 @@ class Spec(NamedTuple):
     (``None``: replicated on every rank; the reference's names), and how a
     ``normal`` leaf is drawn: ``"leaf"``, the whole leaf from the model's
     generator, or ``"matrix"`` (the experts), each matrix from a seed of
-    its own (:func:`_draw_by_matrix`)."""
+    its own (:func:`_draw_by_matrix`). ``parts`` (per dim, ``None``: 1
+    each) says a dim is that many equal pieces a mesh splits each on its
+    own (``sharding.PartitionSpec``)."""
 
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
@@ -54,6 +56,7 @@ class Spec(NamedTuple):
     dtype: Optional[torch.dtype] = None
     axes: Optional[Tuple[Optional[str], ...]] = None
     draw: str = "leaf"        # leaf | matrix
+    parts: Optional[Tuple[int, ...]] = None
 
 
 def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype,
@@ -61,7 +64,7 @@ def _init_leaf(gen: torch.Generator, spec: Spec, device, dtype,
     """One leaf; ``block`` (a slice a dim) keeps only that block of it."""
     dtype = spec.dtype or dtype
     block = block or tuple(slice(0, n) for n in spec.shape)
-    shape = tuple(s.stop - s.start for s in block)
+    shape = tuple(sh.block_extent(s) for s in block)
     if spec.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
@@ -95,7 +98,7 @@ def _draw_in_order(gen: torch.Generator, shape, block, scale: float,
     if len(shape) < 2 or (m % 16 and int(np.prod(lead)) > 1) or m < 16:
         x = torch.randn(shape, generator=gen, dtype=torch.float32)
         return (x * scale)[block].to(dtype)
-    out = torch.empty(tuple(s.stop - s.start for s in block), dtype=dtype)
+    out = torch.empty(tuple(sh.block_extent(s) for s in block), dtype=dtype)
     keep = [range(s.start, s.stop) for s in block[:-2]]
     for idx in itertools.product(*(range(n) for n in lead)):
         x = torch.randn(shape[-2:], generator=gen, dtype=torch.float32)
@@ -160,7 +163,8 @@ def stacked(specs, num: int):
         return Spec((num,) + specs.shape, specs.init, specs.fan_in,
                     specs.dtype,
                     None if specs.axes is None else (None,) + specs.axes,
-                    specs.draw)
+                    specs.draw,
+                    None if specs.parts is None else (1,) + specs.parts)
     return {k: stacked(v, num) for k, v in specs.items()}
 
 
@@ -211,6 +215,89 @@ def embed_specs(vocab: int, d_model: int) -> Dict[str, Spec]:
                      axes=("fsdp", "vocab")),
         "final_norm": Spec((d_model,), "ones"),
     }
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh
+# ---------------------------------------------------------------------------
+
+class Placement:
+    """Where a model's tensors live on a mesh, for every family: the rules
+    (``serve_rules`` when none are given), the batch axes the mesh has,
+    whether prefill is context parallel, each sharded leaf's
+    :class:`PartitionSpec` and this rank's block of it, which dims of the
+    dense leaves each layer gathers before use (their ``fsdp`` dim; under
+    context parallelism every split dim, as the reference gathers its
+    weights per layer there), and the mesh axes that split the heads, kv
+    heads, ``d_ff`` and vocab of what the layers then compute with. A
+    leaf's ``Spec.parts`` travel in its spec, so its block and its gathers
+    keep each piece whole."""
+
+    def __init__(self, mesh, rules, specs):
+        self.mesh = mesh
+        self.rules = dict(rules if rules is not None
+                          else sh.serve_rules("pod" in (mesh.shape
+                                                        if mesh else {})))
+        self.batch_axes = tuple(a for a in sh.norm_axes(self.rules.get(
+            "batch")) if mesh is not None and a in mesh.shape)
+        self.cp = mesh is not None and self.rules.get("seq") == "model"
+        self.param_specs, self.blocks, self.gathers = {}, {}, {}
+        self.split = dict.fromkeys(("heads", "kv_heads", "ffn", "vocab"), ())
+        if mesh is None:
+            return
+        ctx = sh.ShardingContext(mesh, self.rules)
+        for path, leaf in sharded_leaves(specs).items():
+            spec = ctx.spec(leaf.axes)
+            if not spec:
+                continue
+            if leaf.parts is not None:
+                spec = sh.PartitionSpec(spec, parts=leaf.parts[:len(spec)])
+            self.param_specs[path] = spec
+            self.blocks[path] = sh.block_slices(leaf.shape, spec, mesh)
+            if "/moe/" in path:        # the experts gather their own
+                continue
+            # axes of one rank move nothing: one device's ops run there
+            dims = tuple(tuple(a for a in sh.norm_axes(spec[i])
+                               if mesh.shape[a] > 1) if i < len(spec) else ()
+                         for i in range(len(leaf.shape)))
+            gather = tuple(ax if self.cp or name == "fsdp" else ()
+                           for ax, name in zip(dims, leaf.axes))
+            if any(gather):
+                self.gathers[path] = gather
+            for ax, g, name in zip(dims, gather, leaf.axes):
+                if name in self.split and ax and not g:
+                    self.split[name] = ax
+
+    def size(self, axes) -> int:
+        return self.mesh.size(axes) if axes else 1
+
+    def gathered(self, tree, prefix: str, layer: bool = False):
+        """``tree`` (the leaves under ``prefix``; ``layer``: one layer's
+        views of the stacked leaves) with each dense leaf gathered over the
+        axes ``gathers`` names for it: whole along those dims."""
+        if not self.gathers:
+            return tree
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = self.gathered(v, path, layer)
+                continue
+            skip = 1 if layer else 0
+            spec = self.param_specs.get(path)
+            for i, axes in enumerate(self.gathers.get(path, ())[skip:]):
+                if axes:
+                    v = sh.gather_dim(v, axes, i, parts=spec.part(i + skip),
+                                      mesh=self.mesh)
+            out[k] = v
+        return out
+
+    def extras(self):
+        if self.mesh is None:
+            return {}
+        return {"mesh": self.mesh, "rules": self.rules,
+                "param_specs": self.param_specs,
+                "vocab_axes": self.split["vocab"]}
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,21 @@ p % W), ``conv_g``/``conv_w`` [., B, conv_width - 1, d_inner] (the conv's
 trailing inputs), ``ssd_g``/``ssd_w`` [., B, H, ssm_state, D] fp32, and
 ``lengths`` [B]. ``decode_step`` updates every leaf of the cache it is
 given in place (the counterpart of the reference's donated cache): K/V
-rows, ring rows, conv and SSD states."""
+rows, ring rows, conv and SSD states.
+
+On a mesh (``build(..., mesh=, rules=)``) the block runs head parallel
+over ``model``, laid out by ``common.Placement`` from the reference's
+logical axes: attention and the GLU as ``models.transformer`` splits
+them; the SSD branch by head, a rank holding x_r ‖ z_r of ``w_in`` and
+B_r ‖ C_r of ``w_bc`` (two pieces each, ``Spec.parts``), its heads' conv
+channels, ``w_dt``, ``b_dt``, ``a_log`` and ``d_skip``, and its rows of
+``w_out``, whose partial products are summed over ``model`` in fp32 and
+rounded once (``common.row_parallel``); the embedding and head by vocab.
+The two branch norms act on the summed ``d``-wide outputs, whole on every
+rank. The cache holds the rank's kv heads (K/V, rings included) and heads
+(conv and SSD states). Under ``fsdp`` each dense leaf is stored over
+``data`` along its ``d_model`` dim and gathered a layer at a time (inside
+the layer's checkpoint in training)."""
 
 from __future__ import annotations
 
@@ -38,11 +52,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import Model, tp_of
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, attention_decode, attention_decode_ring,
+    Placement, Spec, add_rmsnorm, attention_decode, attention_decode_ring,
     attention_prefill, attention_train, attn_qkv, attn_specs, cache_update,
     chunked_loss, embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
     last_valid_slice, lm_head, ring_cache_update, rmsnorm, rope, rope_tables,
-    silu, stacked, unstack, with_remat,
+    row_parallel, silu, stacked, unstack, with_remat,
 )
 from repro_torch.models.linear_core import (
     chunked_linear_attention, linear_attention_step, pad_mask_gates,
@@ -51,16 +65,24 @@ from repro_torch.models.linear_core import (
 
 def _ssd_specs(d: int, nh: int, hd: int, ds: int,
                conv_w: int) -> Dict[str, Spec]:
+    """The SSD branch's leaves with the reference's logical axes. ``w_in``
+    holds x ‖ z and ``w_bc`` B ‖ C, so their head dim is two pieces
+    (``parts``): on a mesh a rank holds x_r ‖ z_r and B_r ‖ C_r, the
+    pieces of its own heads, and runs the branch on them as one device
+    runs all of them."""
     d_inner = nh * hd
     return {
-        "w_in": Spec((d, 2 * d_inner), fan_in=d),
-        "conv": Spec((conv_w, d_inner), fan_in=conv_w),
-        "w_bc": Spec((d, 2 * nh * ds), fan_in=d),
-        "w_dt": Spec((d, nh), fan_in=d, dtype=torch.float32),
-        "b_dt": Spec((nh,), "zeros", dtype=torch.float32),
-        "a_log": Spec((nh,), "zeros", dtype=torch.float32),
-        "d_skip": Spec((nh,), "zeros", dtype=torch.float32),
-        "w_out": Spec((d_inner, d), fan_in=d_inner),
+        "w_in": Spec((d, 2 * d_inner), fan_in=d, axes=("fsdp", "heads"),
+                     parts=(1, 2)),
+        "conv": Spec((conv_w, d_inner), fan_in=conv_w, axes=(None, "heads")),
+        "w_bc": Spec((d, 2 * nh * ds), fan_in=d, axes=("fsdp", "heads"),
+                     parts=(1, 2)),
+        "w_dt": Spec((d, nh), fan_in=d, dtype=torch.float32,
+                     axes=("fsdp", "heads")),
+        "b_dt": Spec((nh,), "zeros", dtype=torch.float32, axes=("heads",)),
+        "a_log": Spec((nh,), "zeros", dtype=torch.float32, axes=("heads",)),
+        "d_skip": Spec((nh,), "zeros", dtype=torch.float32, axes=("heads",)),
+        "w_out": Spec((d_inner, d), fan_in=d_inner, axes=("heads", "fsdp")),
     }
 
 
@@ -107,17 +129,22 @@ def _ssd_dims(p) -> Tuple[int, int, int]:
     return nh, p["w_bc"].shape[1] // (2 * nh), p["w_in"].shape[1] // (2 * nh)
 
 
-def _ssd_out(p, y, v, z):
+def _ssd_out(p, y, v, z, axes=(), mesh=None):
     """D-skip, silu gate and out-projection of the scan output ``y``
-    (shaped like ``v``, [..., H, D]); z: [B, S, d_inner]."""
+    (shaped like ``v``, [..., H, D]); z: [B, S, d_inner]. Where ``axes``
+    split the heads, ``w_out`` holds this rank's rows
+    (``common.row_parallel``)."""
     y = y + v * p["d_skip"].to(v.dtype)[:, None]
-    return (y.reshape(z.shape) * silu(z)) @ p["w_out"]
+    return row_parallel(y.reshape(z.shape) * silu(z), p["w_out"], axes,
+                        mesh=mesh)
 
 
-def _ssd_seq(p, x, state, chunk: int, vl=None, train: bool = False):
+def _ssd_seq(p, x, state, chunk: int, vl=None, train: bool = False,
+             axes=(), mesh=None):
     """SSD branch over a sequence ``x`` [B,S,d]. state: (conv_state, S
     [B,H,ds,D] fp32), either None for zeros. Returns (branch output,
-    (conv_state, S)); ``train``: the plain scan."""
+    (conv_state, S)); ``train``: the plain scan. The heads are the ones
+    ``p`` holds (a rank's where ``axes`` split them)."""
     B, S, _ = x.shape
     nh, ds, hd = _ssd_dims(p)
     conv_state, Sm = state
@@ -132,10 +159,10 @@ def _ssd_seq(p, x, state, chunk: int, vl=None, train: bool = False):
     v = xin.view(B, S, nh, hd)
     y, Sm = chunked_linear_attention(c, b, v, log_f, log_i, chunk=chunk,
                                      initial_state=Sm, train=train)
-    return _ssd_out(p, y, v, z), (conv_state, Sm)
+    return _ssd_out(p, y, v, z, axes, mesh), (conv_state, Sm)
 
 
-def _ssd_step(p, x, state):
+def _ssd_step(p, x, state, axes=(), mesh=None):
     """One token ``x`` [B,1,d]; updates ``state`` (conv_state, S) in
     place and returns the branch output."""
     B = x.shape[0]
@@ -151,7 +178,7 @@ def _ssd_step(p, x, state):
     log_f, log_i = _ssd_gates(p, x[:, 0])
     v = xin.view(B, nh, hd)
     y, _ = linear_attention_step(Sm, c, b, v, log_f, log_i)
-    return _ssd_out(p, y, v, z)
+    return _ssd_out(p, y, v, z, axes, mesh)
 
 
 def _segments(cfg: ModelConfig) -> List[int]:
@@ -169,7 +196,6 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     nq, nkv, hd, V = pd.num_q_heads, pd.num_kv_heads, pd.head_dim, pd.vocab_size
     d, L, eps = cfg.d_model, cfg.num_layers, cfg.norm_eps
     ds, conv_w, W = cfg.ssm_state, cfg.conv_width, cfg.window
-    d_inner = nq * hd
     n_global = len(cfg.global_layers)
     segs = _segments(cfg)
     n_swa = L - n_global
@@ -188,62 +214,89 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         "g": stacked(layer_specs, n_global),       # global-attention layers
         "swa": stacked(layer_specs, n_swa),        # sliding-window layers
     }
+    place = Placement(mesh, rules, specs)
+    # this rank's heads (attention and SSD alike) and kv heads
+    heads_ax, kv_ax, ffn_ax, vocab_ax = (place.split[k] for k in (
+        "heads", "kv_heads", "ffn", "vocab"))
+    nq_l = nq // place.size(heads_ax)
+    nkv_l = nkv // place.size(kv_ax)
+    d_inner_l = nq_l * hd
 
     def init(gen: torch.Generator):
-        """Seeded parameters on the model's device (``gen`` lives there)."""
-        return init_tree(gen, specs, device, dtype)
+        """Seeded parameters on the model's device (``gen`` lives there):
+        on a mesh, this rank's blocks of the one-device draw."""
+        return init_tree(gen, specs, device, dtype, place.blocks)
 
-    def _layers(params):
+    def _layers(params, gather: bool = True):
         """(kind, index in its stack, layer params) in execution order:
-        each global layer, then its segment of sliding-window layers."""
+        each global layer, then its segment of sliding-window layers; the
+        dense leaves gathered where the layout says (``gather``)."""
         g = unstack(params["g"], n_global)
         swa = unstack(params["swa"], n_swa)
         lo = 0
         for gi in range(n_global):
-            yield "g", gi, g[gi]
+            yield "g", gi, _gathered(g[gi], "g") if gather else g[gi]
             for i in range(lo, lo + segs[gi]):
-                yield "w", i, swa[i]
+                yield "w", i, _gathered(swa[i], "w") if gather else swa[i]
             lo += segs[gi]
+
+    def _gathered(lp, kind: str):
+        """One layer's leaves, whole along the dims its layout gathers."""
+        return place.gathered(lp, "g" if kind == "g" else "swa", layer=True)
+
+    def _attn_out(lp, o):
+        """The attention output ``o`` [B, S, heads, D] projected to ``d``
+        (summed over the ranks that split the heads)."""
+        B, S = o.shape[:2]
+        return row_parallel(o.reshape(B, S, nq_l * hd), lp["attn"]["wo"],
+                            heads_ax, mesh=mesh)
 
     def _mix_ffn(lp, x, a_out, s_out, train: bool = False):
         """Per-branch norms averaged into the residual, second norm, FFN;
-        returns the residual and the FFN's output, not yet added."""
+        returns the residual and the FFN's output, not yet added. The norms
+        act on the ``d``-wide branch outputs, whole on every rank."""
         mix = 0.5 * (rmsnorm(a_out, lp["ln_attn"], eps, train=train)
                      + rmsnorm(s_out, lp["ln_ssd"], eps, train=train))
         x, h2 = add_rmsnorm(x, mix, lp["ln2"], eps, train=train)
-        return x, glu_apply(lp["ffn"], h2)
+        return x, glu_apply(lp["ffn"], h2, ffn_ax, mesh=mesh)
 
     # ---------------- train ----------------
-    def layer_train(x, lp, tables, window: int):
-        """One block of the training forward from zero conv / SSD states."""
-        B, S, _ = x.shape
+    def layer_train(x, lp, tables, window: int, kind: str):
+        """One block of the training forward from zero conv / SSD states;
+        the layer gathers its weights inside its checkpoint."""
+        lp = _gathered(lp, kind)
         h = rmsnorm(x, lp["ln"], eps, train=True)
-        q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+        q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
         q, k = rope(q, tables), rope(k, tables)
         o = attention_train(q, k, v, causal=True, window=window)
-        s_out, _ = _ssd_seq(lp["ssd"], h, (None, None), chunk, train=True)
-        x, y = _mix_ffn(lp, x, o.reshape(B, S, nq * hd) @ lp["attn"]["wo"],
-                        s_out, train=True)
+        s_out, _ = _ssd_seq(lp["ssd"], h, (None, None), chunk, train=True,
+                            axes=heads_ax, mesh=mesh)
+        x, y = _mix_ffn(lp, x, _attn_out(lp, o), s_out, train=True)
         return x + y
 
     layer = with_remat(layer_train, remat)
 
     def loss_fn(params, batch):
         """batch: ``tokens``, ``labels`` [B,S] -> mean cross-entropy, fp32."""
-        x = embed_tokens(params["embed"], batch["tokens"])
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, batch["tokens"], vocab_ax, mesh=mesh)
         tables = rope_tables(torch.arange(x.shape[1], device=device)[None],
                              hd, cfg.rope_theta)
-        for kind, _, lp in _layers(params):
-            x = layer(x, lp, tables, W if kind == "w" else 0)
-        return chunked_loss(params["embed"], x, batch["labels"], eps)
+        for kind, _, lp in _layers(params, gather=False):
+            x = layer(x, lp, tables, W if kind == "w" else 0, kind)
+        return chunked_loss(embed, x, batch["labels"], eps, axes=vocab_ax,
+                            mesh=mesh)
 
     # ---------------- prefill ----------------
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
-        (right-padded prompts, S <= W). Returns last-token logits [B,V] and
-        the cache, its global K/V padded to ``max_len`` positions. Past the
-        window an exact prompt's last W rows land in ring order."""
-        x = embed_tokens(params["embed"], batch["tokens"])
+        (right-padded prompts, S <= W). Returns last-token logits [B,V]
+        (this rank's vocab block where ``extras["vocab_axes"]`` split it)
+        and the cache, its global K/V padded to ``max_len`` positions.
+        Past the window an exact prompt's last W rows land in ring
+        order."""
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, batch["tokens"], vocab_ax, mesh=mesh)
         B, S, _ = x.shape
         vl = batch.get("lengths")
         # padded prefill needs the ring not to wrap: the junk tail slots
@@ -258,16 +311,16 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                              cfg.rope_theta)
         for kind, i, lp in _layers(params):
             h = rmsnorm(x, lp["ln"], eps)
-            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
             q, k = rope(q, tables), rope(k, tables)
             o = attention_prefill(q, k, v, causal=True,
                                   window=W if kind == "w" else 0,
                                   kv_valid=vl)
             conv_s, ssd_s = cache["conv_" + kind][i], cache["ssd_" + kind][i]
-            s_out, (conv_new, ssd_new) = _ssd_seq(lp["ssd"], h,
-                                                  (conv_s, ssd_s), chunk, vl)
-            x, y = _mix_ffn(lp, x, o.reshape(B, S, nq * hd)
-                            @ lp["attn"]["wo"], s_out)
+            s_out, (conv_new, ssd_new) = _ssd_seq(
+                lp["ssd"], h, (conv_s, ssd_s), chunk, vl, axes=heads_ax,
+                mesh=mesh)
+            x, y = _mix_ffn(lp, x, _attn_out(lp, o), s_out)
             x = x + y
             conv_s.copy_(conv_new)
             ssd_s.copy_(ssd_new)
@@ -280,7 +333,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                 vc[:, :S] = v
         x_last = (x[:, -1:].contiguous() if vl is None
                   else last_valid_slice(x, vl))
-        logits = lm_head(params["embed"], x_last, eps)[:, 0]
+        logits = lm_head(embed, x_last, eps)[:, 0]
         cache["lengths"] = (torch.full((B,), S, dtype=torch.int32,
                                        device=device)
                             if vl is None else vl.to(torch.int32))
@@ -291,8 +344,8 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         """tokens: [B,1]; lengths: [B] int32 tokens seen per sample. Updates
         every leaf of ``cache`` in place and returns it with ``lengths +
         1``; ring slots and counts are computed on the device."""
-        x = embed_tokens(params["embed"], tokens)
-        B = x.shape[0]
+        emb = place.gathered(params["embed"], "embed")
+        x = embed_tokens(emb, tokens, vocab_ax, mesh=mesh)
         tables = rope_tables(lengths[:, None], hd, cfg.rope_theta)
         leaves = {name: torch.unbind(cache[name], 0)
                   for name in ("kg", "vg", "kw", "vw", "conv_g", "ssd_g",
@@ -302,7 +355,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
             if y is not None:
                 x = x + y
             h = rmsnorm(x, lp["ln"], eps)
-            q, k, v = attn_qkv(lp["attn"], h, nq, nkv, hd)
+            q, k, v = attn_qkv(lp["attn"], h, nq_l, nkv_l, hd)
             q, k = rope(q, tables), rope(k, tables)
             kc, vc = leaves["k" + kind][i], leaves["v" + kind][i]
             if kind == "w":
@@ -312,10 +365,9 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                 cache_update(kc, vc, k, v, lengths)
                 o = attention_decode(q, kc, vc, lengths + 1)
             s_out = _ssd_step(lp["ssd"], h, (leaves["conv_" + kind][i],
-                                             leaves["ssd_" + kind][i]))
-            x, y = _mix_ffn(lp, x, o.reshape(B, 1, nq * hd)
-                            @ lp["attn"]["wo"], s_out)
-        emb = params["embed"]
+                                             leaves["ssd_" + kind][i]),
+                              heads_ax, mesh)
+            x, y = _mix_ffn(lp, x, _attn_out(lp, o), s_out)
         if segs[-1]:
             # the last layer is a scanned sliding-window layer: the
             # reference rounds its output, the scan's carry, to bf16
@@ -328,17 +380,19 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         return logits[:, 0], dict(cache, lengths=lengths + 1)
 
     def init_cache(batch: int, max_len: int):
+        """Every slot's cache, of this rank's kv heads (K/V) and heads (the
+        conv and SSD states)."""
         def z(n, *shape, dt=dtype):
             return torch.zeros((n, batch) + shape, dtype=dt, device=device)
 
         return {
-            "kg": z(n_global, max_len, nkv, hd),
-            "vg": z(n_global, max_len, nkv, hd),
-            "kw": z(n_swa, W, nkv, hd), "vw": z(n_swa, W, nkv, hd),
-            "conv_g": z(n_global, conv_w - 1, d_inner),
-            "ssd_g": z(n_global, nq, ds, hd, dt=torch.float32),
-            "conv_w": z(n_swa, conv_w - 1, d_inner),
-            "ssd_w": z(n_swa, nq, ds, hd, dt=torch.float32),
+            "kg": z(n_global, max_len, nkv_l, hd),
+            "vg": z(n_global, max_len, nkv_l, hd),
+            "kw": z(n_swa, W, nkv_l, hd), "vw": z(n_swa, W, nkv_l, hd),
+            "conv_g": z(n_global, conv_w - 1, d_inner_l),
+            "ssd_g": z(n_global, nq_l, ds, hd, dt=torch.float32),
+            "conv_w": z(n_swa, conv_w - 1, d_inner_l),
+            "ssd_w": z(n_swa, nq_l, ds, hd, dt=torch.float32),
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device),
         }
@@ -349,5 +403,5 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         # prompt padding is exact (masked SSD gates, per-sample conv state)
         # only while the padded bucket stays within the window
         extras={"padded": pd, "segments": segs,
-                "prompt_pad": True, "prompt_pad_cap": W},
+                "prompt_pad": True, "prompt_pad_cap": W, **place.extras()},
     )

@@ -27,16 +27,19 @@ On a mesh (``build(..., mesh=, rules=)``; ``launch.mesh`` over a
 ``torch.distributed`` world) each rank builds the model the reference
 builds on that mesh: heads and vocab padded by ``cfg.padded(tp)``, so the
 reference's params carry across unchanged, and every entry point takes
-this rank's rows of a batch split over the ``batch`` rule's axes. Dense
-layers stay replicated over ``model`` (the reference shards them by GSPMD
-propagation, with the same numbers); the moe layers run expert parallel
-(``moe.moe_apply`` with the mesh and the rules' axes), and each rank's
-params hold its experts (``extras["param_specs"]``; ``bridge.
-params_for_rank``). With ``rules["seq"] == "model"`` prefill is context
-parallel (ref ``_cp_attention``): each rank embeds and runs its ``S/tp``
-slice of the sequence, attention gathers K/V over ``model`` and calls
-``attention_prefill`` at ``q_offset = rank * S/tp``, and the cache and
-logits equal the one-device ones'."""
+this rank's rows of a batch split over the ``batch`` rule's axes.
+``common.Placement`` lays the leaves out by the reference's logical axes:
+the dense layers tensor parallel over ``model`` (heads, kv heads, ``d_ff``
+and vocab split, the attention output and the FFN's down projection
+summed over ``model`` by ``common.row_parallel``), under ``fsdp`` their
+``d_model`` dim stored over ``data`` and gathered a layer at a time; the
+moe layers run expert parallel (``moe.moe_apply`` with the mesh and the
+rules' axes). Each rank's params hold its blocks (``extras[
+"param_specs"]``; ``bridge.params_for_rank``). With ``rules["seq"] ==
+"model"`` prefill is context parallel (ref ``_cp_attention``): each rank
+embeds and runs its ``S/tp`` slice of the sequence, attention gathers K/V
+over ``model`` and calls ``attention_prefill`` at ``q_offset = rank *
+S/tp``, and the cache and logits equal the one-device ones'."""
 
 from __future__ import annotations
 
@@ -49,11 +52,11 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.api import Model
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, attention_decode, attention_prefill, attention_train,
-    attn_qkv, attn_specs, cache_update, chunked_loss, embed_specs,
-    embed_tokens, glu_apply, glu_specs, init_tree, last_valid_slice, lm_head,
-    rmsnorm, rope, rope_tables, row_parallel, sharded_leaves, stacked,
-    unstack, with_remat,
+    Placement, Spec, add_rmsnorm, attention_decode, attention_prefill,
+    attention_train, attn_qkv, attn_specs, cache_update, chunked_loss,
+    embed_specs, embed_tokens, glu_apply, glu_specs, init_tree,
+    last_valid_slice, lm_head, rmsnorm, rope, rope_tables, row_parallel,
+    stacked, unstack, with_remat,
 )
 
 
@@ -96,7 +99,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     if cfg.family == "moe":
         moe_dims = moe_lib.MoEDims(cfg.num_experts, cfg.num_experts_per_tok,
                                    cfg.moe_capacity_factor, d, cfg.d_ff)
-    place = _Placement(mesh, rules, specs)
+    place = Placement(mesh, rules, specs)
     cp = place.cp
     # this rank's heads, and the mesh axes the dense leaves stay split over
     # once each layer has gathered what it gathers
@@ -144,7 +147,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     def _layers(params):
         """Each layer's leaves as it uses them: the views of its slice of
         the stack, the dense ones gathered where the layout says
-        (``_Placement.gathered``)."""
+        (``Placement.gathered``)."""
         for lp in unstack(params["layers"], L):
             yield place.gathered(lp, "layers", layer=True)
 
@@ -274,79 +277,6 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
         # tokens contend for expert capacity
         extras={"prompt_pad": cfg.family != "moe", **place.extras()},
     )
-
-
-class _Placement:
-    """Where a model's tensors live on a mesh: the rules (``serve_rules``
-    when none are given), the batch axes the mesh has, whether prefill is
-    context parallel, each sharded leaf's :class:`PartitionSpec` and this
-    rank's block of it, which dims of the dense leaves each layer gathers
-    before use (their ``fsdp`` dim; under context parallelism every split
-    dim, as the reference gathers its weights per layer there), and the
-    mesh axes that split the heads, kv heads, ``d_ff`` and vocab of what
-    the layers then compute with."""
-
-    def __init__(self, mesh, rules, specs):
-        self.mesh = mesh
-        self.rules = dict(rules if rules is not None
-                          else sh.serve_rules("pod" in (mesh.shape
-                                                        if mesh else {})))
-        self.batch_axes = tuple(a for a in sh.norm_axes(self.rules.get(
-            "batch")) if mesh is not None and a in mesh.shape)
-        self.cp = mesh is not None and self.rules.get("seq") == "model"
-        self.param_specs, self.blocks, self.gathers = {}, {}, {}
-        self.split = dict.fromkeys(("heads", "kv_heads", "ffn", "vocab"), ())
-        if mesh is None:
-            return
-        ctx = sh.ShardingContext(mesh, self.rules)
-        for path, leaf in sharded_leaves(specs).items():
-            spec = ctx.spec(leaf.axes)
-            if not spec:
-                continue
-            self.param_specs[path] = spec
-            self.blocks[path] = sh.block_slices(leaf.shape, spec, mesh)
-            if "/moe/" in path:        # the experts gather their own
-                continue
-            # axes of one rank move nothing: one device's ops run there
-            dims = tuple(tuple(a for a in sh.norm_axes(spec[i])
-                               if mesh.shape[a] > 1) if i < len(spec) else ()
-                         for i in range(len(leaf.shape)))
-            gather = tuple(ax if self.cp or name == "fsdp" else ()
-                           for ax, name in zip(dims, leaf.axes))
-            if any(gather):
-                self.gathers[path] = gather
-            for ax, g, name in zip(dims, gather, leaf.axes):
-                if name in self.split and ax and not g:
-                    self.split[name] = ax
-
-    def size(self, axes) -> int:
-        return self.mesh.size(axes) if axes else 1
-
-    def gathered(self, tree, prefix: str, layer: bool = False):
-        """``tree`` (the leaves under ``prefix``; ``layer``: one layer's
-        views of the stacked leaves) with each dense leaf gathered over the
-        axes ``gathers`` names for it: whole along those dims."""
-        if not self.gathers:
-            return tree
-        out = {}
-        for k, v in tree.items():
-            path = f"{prefix}/{k}"
-            if isinstance(v, dict):
-                out[k] = self.gathered(v, path, layer)
-                continue
-            for i, axes in enumerate(self.gathers.get(path, ())[
-                    1 if layer else 0:]):
-                for a in reversed(axes):
-                    v = sh.all_gather(v, a, i, mesh=self.mesh)
-            out[k] = v
-        return out
-
-    def extras(self):
-        if self.mesh is None:
-            return {}
-        return {"mesh": self.mesh, "rules": self.rules,
-                "param_specs": self.param_specs,
-                "vocab_axes": self.split["vocab"]}
 
 
 def _axis(rules, name):

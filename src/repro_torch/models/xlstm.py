@@ -17,7 +17,15 @@ axis; the gate weights are fp32. The decode state is the cache
 ``{"m": (S [npairs,B,nh,hd,hd], n [npairs,B,nh,hd]), "s": (c, n, h, m) each
 [npairs,B,d], "lengths": [B]}``, all fp32 but ``lengths``. ``decode_step``
 updates every state leaf of the cache it is given in place (the
-counterpart of the reference's donated cache) and returns it."""
+counterpart of the reference's donated cache) and returns it.
+
+On a mesh (``build(..., mesh=, rules=)``) ``common.Placement`` lays the
+leaves out by the reference's logical axes: the embedding and head split
+by vocab over ``model`` (the logits a rank's vocab block, the loss's
+logsumexp taken over the ranks); the pairs' leaves name no ``model`` axis
+and stay whole over it (at 125 M parameters the reference leaves
+``model`` idle for them), and under ``fsdp`` each is stored over ``data``
+along its ``fsdp`` dim and gathered a pair at a time."""
 
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import softmax_scale
 from repro_torch.models.api import Model, tp_of
 from repro_torch.models.common import (
-    Spec, add_rmsnorm, chunked_loss, embed_specs, embed_tokens, init_tree,
+    Placement, Spec, add_rmsnorm, chunked_loss, embed_specs, embed_tokens, init_tree,
     last_valid_slice, lm_head, rmsnorm, silu, stacked, unstack, with_remat,
 )
 from repro_torch.models.linear_core import (
@@ -42,23 +50,24 @@ from repro_torch.models.linear_core import (
 def _mlstm_specs(d: int, nh: int, d_in: int, hd: int) -> Dict[str, Spec]:
     return {
         "ln": Spec((d,), "ones"),
-        "w_up": Spec((d, 2 * d_in), fan_in=d),
-        "wq": Spec((d_in, nh, hd), fan_in=d_in),
-        "wk": Spec((d_in, nh, hd), fan_in=d_in),
-        "wv": Spec((d_in, nh, hd), fan_in=d_in),
-        "w_gates": Spec((d_in, 2 * nh), fan_in=d_in, dtype=torch.float32),
+        "w_up": Spec((d, 2 * d_in), fan_in=d, axes=("fsdp", None)),
+        "wq": Spec((d_in, nh, hd), fan_in=d_in, axes=("fsdp", None, None)),
+        "wk": Spec((d_in, nh, hd), fan_in=d_in, axes=("fsdp", None, None)),
+        "wv": Spec((d_in, nh, hd), fan_in=d_in, axes=("fsdp", None, None)),
+        "w_gates": Spec((d_in, 2 * nh), fan_in=d_in, dtype=torch.float32,
+                        axes=("fsdp", None)),
         "b_gates": Spec((2 * nh,), "zeros", dtype=torch.float32),
-        "w_down": Spec((d_in, d), fan_in=d_in),
+        "w_down": Spec((d_in, d), fan_in=d_in, axes=(None, "fsdp")),
     }
 
 
 def _slstm_specs(d: int) -> Dict[str, Spec]:
     return {
         "ln": Spec((d,), "ones"),
-        "w": Spec((d, 4 * d), fan_in=d),
-        "r": Spec((d, 4 * d), fan_in=d),
+        "w": Spec((d, 4 * d), fan_in=d, axes=("fsdp", None)),
+        "r": Spec((d, 4 * d), fan_in=d, axes=("fsdp", None)),
         "b": Spec((4 * d,), "zeros"),
-        "w_out": Spec((d, d), fan_in=d),
+        "w_out": Spec((d, d), fan_in=d, axes=("fsdp", None)),
     }
 
 
@@ -208,10 +217,19 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     pair_specs = {"m": _mlstm_specs(d, nh, d_in, hd), "s": _slstm_specs(d)}
     specs = {"embed": embed_specs(V, d), "pairs": stacked(pair_specs, npairs)}
+    place = Placement(mesh, rules, specs)
+    vocab_ax = place.split["vocab"]
 
     def init(gen: torch.Generator):
-        """Seeded parameters on the model's device (``gen`` lives there)."""
-        return init_tree(gen, specs, device, dtype)
+        """Seeded parameters on the model's device (``gen`` lives there):
+        on a mesh, this rank's blocks of the one-device draw."""
+        return init_tree(gen, specs, device, dtype, place.blocks)
+
+    def _pairs(params, gather: bool = True):
+        """Each pair's leaves as it uses them: the views of its slice of
+        the stack, gathered over ``data`` where ``fsdp`` stores them."""
+        for pp in unstack(params["pairs"], npairs):
+            yield place.gathered(pp, "pairs", layer=True) if gather else pp
 
     def _zero_state(B: int, n: int = npairs):
         def z(*shape):
@@ -225,7 +243,8 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     def pair_train(x, pp):
         """One (mLSTM, sLSTM) pair of the training forward from a zero
-        state."""
+        state; the pair gathers its weights inside its checkpoint."""
+        pp = place.gathered(pp, "pairs", layer=True)
         st = _zero_state(x.shape[0], 1)
         mst, sst = _layer(st, 0)
         dm, _ = _mlstm_seq(pp["m"], rmsnorm(x, pp["m"]["ln"], train=True),
@@ -237,21 +256,26 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
 
     def loss_fn(params, batch):
         """batch: ``tokens``, ``labels`` [B,S] -> mean cross-entropy, fp32."""
-        x = embed_tokens(params["embed"], batch["tokens"])
-        for pp in unstack(params["pairs"], npairs):
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, batch["tokens"], vocab_ax, mesh=mesh)
+        for pp in _pairs(params, gather=False):
             x = pair(x, pp)
-        return chunked_loss(params["embed"], x, batch["labels"], eps)
+        return chunked_loss(embed, x, batch["labels"], eps, axes=vocab_ax,
+                            mesh=mesh)
 
     def prefill(params, batch, max_len: Optional[int] = None):
         """batch: ``tokens`` [B,S] and optional per-sample ``lengths`` [B]
         (right-padded prompts; S a multiple of ``min(chunk, S)``). Returns
-        last-token logits [B,V] and the decode state (``max_len`` is
-        unused: the state does not grow with the sequence)."""
-        x = embed_tokens(params["embed"], batch["tokens"])
+        last-token logits [B,V] (this rank's vocab block where
+        ``extras["vocab_axes"]`` split it) and the decode state
+        (``max_len`` is unused: the state does not grow with the
+        sequence)."""
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, batch["tokens"], vocab_ax, mesh=mesh)
         B, S, _ = x.shape
         vl = batch.get("lengths")
         state = _zero_state(B)
-        for i, pp in enumerate(unstack(params["pairs"], npairs)):
+        for i, pp in enumerate(_pairs(params)):
             mst, sst = _layer(state, i)
             dm, (Sm, Nm) = _mlstm_seq(pp["m"], rmsnorm(x, pp["m"]["ln"]), mst,
                                       chunk, scale, vl)
@@ -264,7 +288,7 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
                 dst.copy_(src)
         x_last = (x[:, -1:].contiguous() if vl is None
                   else last_valid_slice(x, vl))
-        logits = lm_head(params["embed"], x_last, eps)[:, 0]
+        logits = lm_head(embed, x_last, eps)[:, 0]
         state["lengths"] = (torch.full((B,), S, dtype=torch.int32,
                                        device=device)
                             if vl is None else vl.to(torch.int32))
@@ -273,13 +297,14 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     def decode_step(params, cache, tokens, lengths):
         """tokens: [B,1]; lengths: [B] int32. Updates every state leaf of
         ``cache`` in place and returns it with ``lengths + 1``."""
-        x = embed_tokens(params["embed"], tokens)
-        for i, pp in enumerate(unstack(params["pairs"], npairs)):
+        embed = place.gathered(params["embed"], "embed")
+        x = embed_tokens(embed, tokens, vocab_ax, mesh=mesh)
+        for i, pp in enumerate(_pairs(params)):
             mst, sst = _layer(cache, i)
             dm = _mlstm_step(pp["m"], rmsnorm(x, pp["m"]["ln"]), mst, scale)
             x, h = add_rmsnorm(x, dm, pp["s"]["ln"])
             x = x + _slstm_step(pp["s"], h, sst)
-        logits = lm_head(params["embed"], x, eps)[:, 0]
+        logits = lm_head(embed, x, eps)[:, 0]
         return logits, {"m": cache["m"], "s": cache["s"],
                         "lengths": lengths + 1}
 
@@ -292,5 +317,5 @@ def build(cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
     return Model(
         cfg=cfg, device=device, dtype=dtype, init=init, prefill=prefill,
         decode_step=decode_step, init_cache=init_cache, loss_fn=loss_fn,
-        extras={"prompt_pad": True},
+        extras={"prompt_pad": True, **place.extras()},
     )

@@ -55,9 +55,14 @@ ranks' max (one all-reduce a prefill, where the engine waits for the
 prefill anyway). Under NCCL the decode step is captured with its
 collectives inside; under gloo (host-side, so not capturable) it runs
 eagerly, and ``engine.decode.graph`` says which. ``engine.mesh`` names the
-mesh. Over a ``data`` axis the model must not itself communicate over it
-(no ``fsdp`` or ``expert_ffn`` there: each data row prefills its own
-requests, alone), and the reference loop (``fused=False``) is refused.
+mesh. Where the model itself communicates over a data axis (its weights
+split there: ``fsdp="data"`` at serve time, ``ep2d``'s
+``expert_ffn="data"``), every data row runs every prefill the server
+dispatches, at the same batch and length rungs, so that the rows'
+collectives pair up: a row puts its own requests in their rows of the
+batch and padding in the others, and scatters only its own slots. The
+decode step is run by every row on every step in any case. Over a data
+axis the reference loop (``fused=False``) is refused.
 
 Calibrated-simulation mode (``service_model`` + ``VirtualClock``) advances
 the clock by modeled time, so reports are byte-identical per seed."""
@@ -110,15 +115,18 @@ class Request:
 class SlotLayout:
     """Where a server's slots live on a mesh: the axes that split them
     (the mesh's axes but ``model``; each data row holds a contiguous block
-    of ``per_row`` slots from ``lo``), the axes that split the model's
-    logits over the vocab, and the full vocab's size. ``None`` mesh: one
-    device, every slot."""
+    of ``per_row`` slots from ``lo``), whether the data rows prefill
+    together (``joint``: the model splits weights over a data axis, so
+    its collectives there need every row), the axes that split the
+    model's logits over the vocab, and the full vocab's size. ``None``
+    mesh: one device, every slot."""
 
     def __init__(self, model: Model, mesh, slots: int):
         self.mesh = mesh
         self.data_axes: Tuple[str, ...] = ()
         self.vocab_axes: Tuple[str, ...] = ()
         self.lo, self.per_row = 0, slots
+        self.joint = False
         self.vocab = None
         if mesh is None:
             return
@@ -129,14 +137,10 @@ class SlotLayout:
             if slots % dp:
                 raise ValueError(f"{slots} slots do not split over {data} "
                                  f"= {dp}")
-            talks = {a for spec in model.extras.get("param_specs",
-                                                    {}).values()
-                     for e in spec for a in sh.norm_axes(e) if a in data}
-            if talks:
-                raise NotImplementedError(
-                    f"LMServer over {data}: the model splits its weights "
-                    f"over {sorted(talks)}, so its data rows could not "
-                    f"prefill their own requests alone")
+            self.joint = any(
+                a in data and mesh.shape[a] > 1
+                for spec in model.extras.get("param_specs", {}).values()
+                for e in spec for a in sh.norm_axes(e))
             self.data_axes = data
             self.per_row = slots // dp
             self.lo = mesh.index(data) * self.per_row
@@ -476,11 +480,14 @@ class LMServer:
         return batch, False
 
     def _prefill(self, params, toks: np.ndarray, vlens: np.ndarray,
-                 padded: bool, rows: Optional[List[int]] = None
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 padded: bool, rows: Optional[List[int]] = None):
         """The prefill of the admitted batch ``toks`` (its shape is the
         one dispatched), or over a data axis of its ``rows`` that go to
-        this data row's slots: ``(None, None)`` where none does."""
+        this data row's slots -> ``(logits, cache)``, the logits of those
+        requests. A row prefills them alone (``(None, None)`` where none
+        is its), or, where the data rows prefill together
+        (``SlotLayout.joint``), the whole dispatched shape with padding in
+        the other rows' places, the cache's rows ``rows`` its requests'."""
         shape = (toks.shape[0], toks.shape[1], padded)
         if shape not in self._prefill_shapes:
             self._prefill_shapes.add(shape)
@@ -490,14 +497,25 @@ class LMServer:
                     "compile", "engine.prefill", self.clock(),
                     attrs={"batch": shape[0], "prompt_len": shape[1],
                            "padded": padded})
-        if rows is not None:
+        if rows is not None and self.layout.joint:
+            mine = np.zeros_like(toks)
+            mine[rows] = toks[rows]
+            pad = np.full_like(vlens, toks.shape[1])
+            pad[rows] = vlens[rows]
+            toks, vlens = mine, pad
+        elif rows is not None:
             if not rows:
                 return None, None
             toks, vlens = toks[rows], vlens[rows]
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         if padded:
             batch["lengths"] = torch.from_numpy(vlens).to(self.device)
-        return self.model.prefill(params, batch, max_len=self.max_len)
+        logits, cache = self.model.prefill(params, batch,
+                                           max_len=self.max_len)
+        if rows is not None and self.layout.joint:
+            logits = logits.index_select(0, torch.tensor(
+                rows, dtype=torch.long, device=logits.device))
+        return logits, cache
 
     @torch.no_grad()
     def _admit(self, params) -> None:
@@ -569,8 +587,10 @@ class LMServer:
         """Admission's second half: sample each request's first token from
         its prefill ``logits`` and move request ``i`` (row ``i`` of
         ``pcache``, ``vlens[i]`` valid positions) into slot ``free[i]``.
-        Over a data axis ``logits`` and ``pcache`` hold the batch's
-        ``rows`` (:meth:`_prefill`), and this data row's cache takes them."""
+        Over a data axis ``logits`` hold the batch's ``rows``, as
+        ``pcache`` does (rows ``rows`` of it where the data rows prefill
+        together; :meth:`_prefill`), and this data row's cache takes
+        them."""
         n = len(batch)
         dev = self.device
         if rows is None:
@@ -612,8 +632,9 @@ class LMServer:
         elif rows:
             batched_scatter(self.cache, pcache, torch.tensor(
                 [free[i] - self.layout.lo for i in rows], dtype=torch.long,
-                device=dev), torch.arange(len(rows), dtype=torch.long,
-                                          device=dev))
+                device=dev), torch.tensor(
+                    rows if self.layout.joint else range(len(rows)),
+                    dtype=torch.long, device=dev))
         _admit_state(self.lengths, self.cur_tokens, self.active_mask,
                      self.gen_counts, self.max_new, dst, src,
                      torch.from_numpy(vlens).to(dev), first,

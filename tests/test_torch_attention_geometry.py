@@ -7,7 +7,8 @@ valid positions."""
 import pytest
 
 from repro_torch.kernels.decode_attention.decode_attention import (
-    MAX_CLUSTER, block_warps, cluster_size, cluster_slices)
+    BLOCK_G, MAX_CLUSTER, block_warps, cluster_size, cluster_slices,
+    head_groups)
 from repro_torch.kernels.flash_attention.flash_attention import (
     M_TILE, geometry, tile_key_range, tile_pairs)
 
@@ -99,6 +100,22 @@ def test_cluster_size_is_portable_and_divides_the_grid(B, Hkv, Smax, window):
     assert grid[0] % c == 0
     span = min(Smax, window) if window > 0 else Smax
     assert c == 1 or 16 * (c // 2) < span     # no block left without work
+
+
+@pytest.mark.parametrize("G,groups,sizes", [
+    (1, 1, [1]), (5, 1, [5]), (8, 1, [8]), (9, 2, [5, 4]),
+    (13, 2, [7, 6]), (16, 2, [8, 8])])
+def test_head_groups_keep_a_block_within_eight_heads(G, groups, sizes):
+    """The kernel cuts a kv head's G query heads into ``head_groups(G)``
+    grid rows of ceil(G / groups) heads but the last (csrc/
+    decode_attention.cu: ``Gb``, ``g0``): every head in one group, none
+    holding more than ``BLOCK_G``; hymba at model = 2 (G = 13) takes 7
+    and 6. At G <= 8 one group: the launch every earlier shape had."""
+    assert head_groups(G) == groups
+    gb = -(-G // groups)
+    got = [min(gb, G - g0) for g0 in range(0, G, gb)]
+    assert got == sizes and sum(got) == G
+    assert max(got) <= BLOCK_G
 
 
 def test_headline_decode_cluster():

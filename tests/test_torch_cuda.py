@@ -180,6 +180,14 @@ DECODE_CASES = [
     (8, 14, 2, 64, 256, [0, 9, 200, 256, 37, 128, 64, 241], 0),
     (4, 14, 2, 64, 2112, [2049, 2060, 2080, 2112], 0),
     (8, 48, 8, 128, 512, [33, 64, 200, 287, 0, 512, 129, 260], 0),
+    # hymba's tensor-parallel ranks: padded(4) holds 7 / 1 heads (G = 7),
+    # padded(2) 13 / 1 (G = 13: two head groups, 7 and 6), on the ring and
+    # on the global cache; G = 9 and 16, the ends of two groups
+    (8, 7, 1, 64, 2048, [1, 300, 2048, 2048, 1500, 2048, 37, 2048], 0),
+    (4, 13, 1, 64, 2048, [1, 2048, 700, 2048], 0),
+    (4, 13, 1, 64, 256, [0, 1, 129, 256], 0),
+    (3, 18, 2, 64, 100, [100, 0, 37], 0),
+    (2, 32, 2, 128, 300, [300, 150], 16),
 ]
 
 
@@ -414,6 +422,11 @@ def test_wrappers_raise_on_unsupported_card_inputs(dev):
     ln = torch.ones((1,), dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):                   # fp32: no kernel, no fallback
         decode_attention_op(q, kv, kv, ln)
+    with pytest.raises(ValueError, match="G <= 16"):  # 17 heads a kv head
+        decode_attention_op(torch.zeros((1, 1, 17, 64), device=dev,
+                                        dtype=torch.bfloat16),
+                            kv[:, :, :1].to(torch.bfloat16).contiguous(),
+                            kv[:, :, :1].to(torch.bfloat16).contiguous(), ln)
     x32 = torch.zeros((8, 64), device=dev)
     with pytest.raises(TypeError):                   # fp32 x and weight
         rmsnorm_op(x32, torch.ones(64, device=dev))

@@ -569,27 +569,6 @@ def test_serve_launcher_on_an_elastic_mesh_with_data(tmp_path):
     assert all(len(t) == 4 for t in ranks[0]["streams"].values())
 
 
-def test_lmserver_over_data_refuses_models_that_split_over_data():
-    """Each data row prefills its own requests alone, so a model whose
-    weights are split over ``data`` (``fsdp`` there) is refused, and so is
-    the reference loop over ``data``."""
-    from repro_torch.distributed.sharding import serve_rules
-    m = build_model(R.config("granite-8b"), device="cpu",
-                    mesh=_rank_mesh((2, 2), 0),
-                    rules=dict(serve_rules(False), fsdp="data"))
-    with pytest.raises(NotImplementedError, match="over"):
-        t_engine.SlotLayout(m, m.extras["mesh"], 4)
-    m = build_model(R.config("granite-8b"), device="cpu",
-                    mesh=_rank_mesh((2, 2), 0), rules=serve_rules(False))
-    layout = t_engine.SlotLayout(m, m.extras["mesh"], 4)
-    assert (layout.data_axes, layout.lo, layout.per_row) == (("data",), 0, 2)
-    with pytest.raises(ValueError, match="do not split"):
-        t_engine.SlotLayout(m, m.extras["mesh"], 3)
-    # the reference loop serves every slot on one device
-    with pytest.raises(NotImplementedError, match="fused=False"):
-        t_engine.LMServer(m, device="cpu", slots=4, fused=False)
-
-
 # ---------------------------------------------------------------------------
 # the kernel build, started by several processes at once
 # ---------------------------------------------------------------------------
@@ -825,35 +804,6 @@ def test_adafactor_trains_split_leaves(tmp_path, shape, arch):
     assert max(rounds.values()) <= GRAD_ROUNDINGS, rounds
     # the factors' sums over the splitting axes
     assert ("psum", ("model",)) in _calls(ranks[0]["record"], "float32")
-
-
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium",
-                                  "xlstm-125m"])
-def test_families_left_for_later_keep_whole_dense_leaves(arch):
-    """hymba, encdec and xlstm split no dense leaf yet: on each rank of a
-    (1, 4) mesh their params are the one device's (padded by 4) whole, bit
-    for bit, and so are their prefill logits."""
-    from repro_torch.distributed.sharding import serve_rules
-    cfg = R.config(arch)
-    one = build_model(cfg.padded_config(4), device="cpu")
-    params = one.init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (2, 16)).astype(np.int32))}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.from_numpy(
-            (rng.normal(size=(2, 8, cfg.d_model)) * 0.02).astype(np.float32))
-    with torch.no_grad():
-        want = one.prefill(params, batch, max_len=24)[0]
-    for r in range(4):
-        m = build_model(cfg, device="cpu", mesh=_rank_mesh((1, 4), r),
-                        rules=serve_rules(False))
-        assert not m.extras.get("param_specs")
-        got = dict(flatten_with_paths(m.init(torch.Generator().manual_seed(0))))
-        for path, leaf in flatten_with_paths(params):
-            assert torch.equal(got[path], leaf), path
-        with torch.no_grad():
-            assert torch.equal(m.prefill(params, batch, max_len=24)[0], want)
 
 
 @pytest.mark.parametrize("arch,rules", [
