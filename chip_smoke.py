@@ -154,11 +154,18 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    dbrx-132b at ``reduced_config`` width (``LOSS_TOL``, ``GRAD_ROUNDINGS``,
    ``OPT_RTOL``);
 14. the launch tooling (``repro_torch.launch``): the dry run of the
-   reference's 32 arch x shape cells at full width on the meta device
-   (``python -m repro_torch.launch.dryrun``, started in the background at
-   the top of the run, the card hidden from it), one table row per cell
-   (arguments and peak GB, fits one 80 GB card, dot TFLOP, the roofline
-   terms), failing unless every record is ``ok``; flash at S=32,768 against
+   reference's 32 arch x shape cells at full width on the meta device,
+   three sweeps of ``python -m repro_torch.launch.dryrun`` started side
+   by side in the background at the top of the run, the card hidden from
+   them: ``--mesh one`` (one device), ``--mesh single`` (one counting
+   rank of 16 x 16) and ``--mesh multi`` (of 2 x 16 x 16), 96 records,
+   failing unless all three exit 0 with every record ``ok``; one table
+   row per cell on one device (arguments and peak GB, fits one 80 GB
+   card, dot TFLOP, the roofline terms), a second table with one row per
+   (cell, mesh) for a rank (arguments and arguments + temp GB, fits one
+   80 GB card, collective wire GB by op, T_compute, T_memory and T_coll
+   ms, the dominant term, the fraction) and a line naming the cells
+   whose rank does not fit one card; flash at S=32,768 against
    SDPA (the plain version would need a 64 GB score tensor); then four of
    the reference's cells through ``launch.steps.build_step`` at full width
    (``LAUNCH_CELLS``: hymba-1.5b x long_500k at its full shape, smollm-360m
@@ -234,7 +241,16 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    frames and 8 decode steps fed the one device's tokens, each step's
    logits within ``LOGIT_TOL``; 16k one ``train_rules`` step of
    xlstm-125m and of the hymba cut on (data 2, model 2), gradients under
-   16g's rule; the kernels' launches (counts set to 0 before each path,
+   16g's rule; 16l smollm-360m at ``padded(2)`` on (data 2, model 2)
+   through ``launch.steps.build_step``, a decode step at full width (B 8,
+   Smax 1024, the kernels on) and a ``train_rules`` step cut to
+   ``POD_LAYERS`` layers (B 8 x 256), each counted by ``hlo_stats.count``
+   as it runs on every rank and as the counting rank at the rank's
+   coordinates counts it on meta (``launch.mesh.make_rank_mesh``): equal
+   dot FLOPs by dtype, kernel work by kernel, and collective calls and
+   payload bytes by op, axes and dtype (memory is not compared: gloo's
+   host staging copies are ops of their own), decode attention and
+   RMSNorm launched, seconds a rank; the kernels' launches (counts set to 0 before each path,
    read after, the ranks' summed) are the ``"sharded"`` path; phase 2
    holds flash at the context-parallel shapes first (``CP_CASES``);
 17. print the figures, the card's name and power limit, one ``kernels`` JSON
@@ -3441,44 +3457,69 @@ LAUNCH_CELLS = (
 )
 
 
+# the dry run's sweeps, each in a process of its own: one device, and a
+# counting rank of each production mesh (--mesh single, multi)
+DRYRUN_MESHES = ("one", "single", "multi")
+
+
 def start_dryrun(out_dir):
     """``python -m repro_torch.launch.dryrun`` over all 32 cells, on meta, in
-    the background (its CPU time overlaps the card's phases); the card is
-    hidden from it, so it takes the 80 GB default capacity."""
+    the background (its CPU time overlaps the card's phases), three sweeps
+    side by side: ``--mesh one``, ``single`` and ``multi``; the card is
+    hidden from them, so they take the 80 GB default capacity. -> {mesh:
+    process}."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src")]
                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    log_file = open(Path(out_dir) / "dryrun.log", "w")
+    procs = {}
     try:
-        return subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
-             str(out_dir), "--force"], cwd=ROOT, env=env, stdout=log_file,
-            stderr=subprocess.STDOUT)
-    finally:
-        log_file.close()
+        for mesh in DRYRUN_MESHES:
+            with open(Path(out_dir) / f"dryrun_{mesh}.log", "w") as log_file:
+                procs[mesh] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--mesh", mesh, "--out", str(out_dir), "--force"],
+                    cwd=ROOT, env=env, stdout=log_file,
+                    stderr=subprocess.STDOUT)
+    except BaseException:
+        stop_dryrun(procs)
+        raise
+    return procs
 
 
-def collect_dryrun(proc, out_dir, timeout=900):
-    """The 32 records of the background dry run; fails unless it exited 0
-    with every record ``ok``."""
+def stop_dryrun(procs):
+    """Kill whichever sweeps still run."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def collect_dryrun(procs, out_dir, timeout=900):
+    """The 96 records of the background sweeps, by mesh; fails unless all
+    three exited 0 with every record ``ok``."""
     from repro_torch.configs.registry import all_cells
-    try:
-        rc = proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise AssertionError(f"the dry run did not end in {timeout} s")
-    text = (Path(out_dir) / "dryrun.log").read_text()
-    recs = [json.loads(p.read_text())
-            for p in sorted((Path(out_dir) / "baseline").glob("*.json"))]
+    deadline = time.monotonic() + timeout
     cells = {(c.name, s.name) for c, s in all_cells()}
-    bad = [r for r in recs if not r.get("ok")]
-    if rc or bad or {(r["arch"], r["shape"]) for r in recs} != cells:
-        raise AssertionError(f"dry run: exit {rc}, {len(recs)} records, "
-                             f"failed {[(r['arch'], r['shape']) for r in bad]}"
-                             f"\n{text[-4000:]}")
-    return recs
+    out, bad = {}, []
+    for mesh, proc in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            stop_dryrun(procs)
+            raise AssertionError(f"the dry run (--mesh {mesh}) did not end "
+                                 f"in {timeout} s")
+        recs = [json.loads(p.read_text()) for p in sorted(
+            (Path(out_dir) / "baseline").glob(f"*__{mesh}.json"))]
+        failed = [(r["arch"], r["shape"]) for r in recs if not r.get("ok")]
+        if rc or failed or {(r["arch"], r["shape"]) for r in recs} != cells:
+            text = (Path(out_dir) / f"dryrun_{mesh}.log").read_text()
+            bad.append(f"--mesh {mesh}: exit {rc}, {len(recs)} records, "
+                       f"failed {failed}\n{text[-3000:]}")
+        out[mesh] = recs
+    if bad:
+        raise AssertionError("dry run: " + "\n".join(bad))
+    return out
 
 
 def dryrun_table(recs):
@@ -3507,6 +3548,36 @@ def dryrun_table(recs):
     fit = [f"{r['arch']} x {r['shape']}" for r in recs if r["fits"]]
     log(f"dry run: {len(fit)} of {len(recs)} cells fit one 80 GB card: "
         f"{fit}")
+
+
+def rank_table(by_mesh):
+    """One row per (cell, production mesh): one rank's footprint against
+    one 80 GB card, its collectives' wire bytes by op, and the roofline
+    terms with T_coll priced by ``roofline.link_bw``; then the cells that
+    do not fit a rank."""
+    from repro_torch.launch import roofline
+    log("dry run, one counting rank of each production mesh (meta, a CPU "
+        "count; capacity 80 GB a rank): arch | shape | mesh | rank | args "
+        "GB | args + temp GB | fits | collective GB by op (ring wire bytes "
+        "a rank) | T_compute ms | T_memory ms | T_coll ms | dominant | "
+        "fraction (ideal / bound) | extrapolated | trace s")
+    unfit = []
+    for mesh in ("single", "multi"):
+        for r in by_mesh[mesh]:
+            c = roofline.cell_from_record(r)
+            ma = r["memory_analysis"]
+            coll = {k: round(v / 1e9, 4)
+                    for k, v in r["hlo"]["collective_bytes"].items()}
+            log(f"  {r['arch']} | {r['shape']} | {r['mesh']} | "
+                f"{r['rank_coords']} | {ma['argument_bytes'] / 1e9:.3f} | "
+                f"{(ma['argument_bytes'] + ma['temp_bytes']) / 1e9:.3f} | "
+                f"{r['fits']} | {coll} | {c.t_compute * 1e3:.4f} | "
+                f"{c.t_memory * 1e3:.4f} | {c.t_coll * 1e3:.4f} | "
+                f"{c.dominant} | {c.fraction:.4f} | {r['extrapolated']} | "
+                f"{r['trace_s']}")
+            if not r["fits"]:
+                unfit.append(f"{r['arch']} x {r['shape']} x {r['mesh']}")
+    log(f"dry run: cells whose rank does not fit one 80 GB card: {unfit}")
 
 
 def card_cell(dev, arch, shape_name, batch, steps, kernels):
@@ -3602,18 +3673,20 @@ def card_cell(dev, arch, shape_name, batch, steps, kernels):
                 kernel_work=card.to_dict()["kernel_work"])
 
 
-def launch_phases(dev, proc, out_dir):
-    """Phase 14: new kernel shapes' cross-check, the dry run's table, the
-    four cells on the card; returns each serving cell's launches."""
+def launch_phases(dev, procs, out_dir):
+    """Phase 14: new kernel shapes' cross-check, the dry run's tables (one
+    device, a rank of each production mesh), the four cells on the card;
+    returns each serving cell's launches."""
     t0 = time.perf_counter()
     r = flash_vs_sdpa(dev)
     log(f"flash_attention {r['case']}: max_abs_err={r['max_abs_err']} "
         f"ms={r['ms']} library_ms={r['library_ms']} bound_ms="
         f"{r['bound'][0]} ({r['bound'][1]})")
-    recs = collect_dryrun(proc, out_dir)
-    log(f"dry run collected at {time.perf_counter() - t0:.1f} s into the "
-        f"phase")
-    dryrun_table(recs)
+    by_mesh = collect_dryrun(procs, out_dir)
+    log(f"dry run: {sum(len(v) for v in by_mesh.values())} records "
+        f"collected at {time.perf_counter() - t0:.1f} s into the phase")
+    dryrun_table(by_mesh["one"])
+    rank_table(by_mesh)
     by_path = {}
     for arch, shape, batch, steps, kernels in LAUNCH_CELLS:
         t1 = time.perf_counter()
@@ -4096,7 +4169,103 @@ def _sharded_rank(rank, p):
     out.update(_tp_train_rank(p, dev))
     lap("16g")
     out.update(_family_rank(p, mesh, lap))
+    out.update(_count_rank(dev))
+    lap("16l")
     return out
+
+
+# 16l: smollm-360m's decode step at full width (B slots, Smax) and its
+# train_rules step cut to POD_LAYERS layers (B x S), on (data 2, model 2)
+COUNT_DECODE = (8, 1024)
+COUNT_TRAIN = (8, 256)
+
+
+def _count_rank(dev):
+    """Phase 16l on one rank: smollm-360m through ``launch.steps.build_step``
+    on (data 2, model 2) at ``padded(2)``, a decode step at full width and
+    a ``train_rules`` step cut to ``POD_LAYERS`` layers, each counted
+    (``hlo_stats.count``) as it runs on this rank's world and as the
+    counting rank at the same coordinates counts it on meta."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.mesh import make_mesh, make_rank_mesh
+    from repro_torch.launch.steps import build_step
+
+    out = {}
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev, share=True)
+    counting = make_rank_mesh((2, 2), ("data", "model"), mesh.world.coords)
+    full = ARCHITECTURES["smollm-360m"]
+    for cell, cfg, shape in (
+            ("decode", full, ShapeSpec("decode", COUNT_DECODE[1],
+                                       COUNT_DECODE[0], "decode")),
+            ("train", dataclasses.replace(full, num_layers=POD_LAYERS),
+             ShapeSpec("train", COUNT_TRAIN[1], COUNT_TRAIN[0], "train"))):
+        t0 = time.perf_counter()
+        real = build_step(cfg, shape, mesh)
+        args = real.make_args(0)
+        torch.cuda.synchronize()
+        _zero_counts()
+        got = hlo_stats.count(real.fn, *args, mesh=mesh).to_dict()
+        torch.cuda.synchronize()
+        launches = _counts()
+        del real, args
+        torch.cuda.empty_cache()
+        meta = build_step(cfg, shape, counting)
+        want = hlo_stats.count(meta.fn, *meta.arg_specs,
+                               mesh=counting).to_dict()
+        out[f"cnt_{cell}"] = dict(
+            got=got, want=want, launches=launches,
+            seconds=time.perf_counter() - t0,
+            slots=meta.arg_specs[2].shape[0] if cell == "decode" else None)
+    return out
+
+
+def _check_count_ranks(ranks, counts):
+    """Phase 16l's checks on every rank, then its log line; adds the decode
+    cell's launches to ``counts``."""
+    for r, out in enumerate(ranks):
+        for cell in ("decode", "train"):
+            c = out[f"cnt_{cell}"]
+            diff = sorted(k for k in set(c["got"]) | set(c["want"])
+                          if c["got"].get(k) != c["want"].get(k))
+            if diff:
+                raise AssertionError(
+                    f"16l rank {r} {cell}: the real count differs from the "
+                    f"counting rank's in {diff}: "
+                    f"{ {k: (c['got'].get(k), c['want'].get(k)) for k in diff} }")
+            if not c["got"].get("collective_payload"):
+                raise AssertionError(f"16l rank {r} {cell}: no collective")
+        dec, tr = out["cnt_decode"], out["cnt_train"]
+        for k in ("rmsnorm", "decode_attention"):
+            if not dec["launches"][k]:
+                raise AssertionError(f"16l rank {r}: {k} never launched "
+                                     f"({dec['launches']})")
+        if any(tr["launches"].values()):
+            raise AssertionError(f"16l rank {r}: training launched kernels "
+                                 f"{tr['launches']}")
+        for k, n in dec["launches"].items():
+            counts[k] += n
+    r0 = ranks[0]
+    for cell, what in (("decode", f"decode B={COUNT_DECODE[0]} (slots "
+                                  f"{r0['cnt_decode']['slots']} a rank) "
+                                  f"Smax={COUNT_DECODE[1]}, 32 layers"),
+                       ("train", f"train_rules B={COUNT_TRAIN[0]} x "
+                                 f"S={COUNT_TRAIN[1]}, {POD_LAYERS} "
+                                 f"layers")):
+        c = r0[f"cnt_{cell}"]
+        log(f"16l smollm-360m at padded(2) on (data 2, model 2), {what}: "
+            f"on every rank the real count equals the counting rank's on "
+            f"meta (dot FLOPs {c['got']['dot_flops_by_dtype']}; kernel work "
+            f"{ {k: w['calls'] for k, w in c['got']['kernel_work'].items()} } "
+            f"calls; collectives (calls, payload bytes) by op/axes/dtype "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in c['got']['collective_payload'].items()} }"
+            f", wire bytes by op {c['got']['collective_bytes']}); launches a "
+            f"rank {c['launches']}; seconds a rank "
+            f"{[round(o[f'cnt_{cell}']['seconds'], 1) for o in ranks]}")
 
 
 def _full_logits(model, logits):
@@ -4741,7 +4910,9 @@ def sharded_phases(dev):
     the card (spawned once, after the kernels are built, the weights handed
     over as CUDA handles): 16b dbrx ``ep`` over (1, 4), 16c smollm-360m's
     context-parallel prefill of a 2048-token prompt, 16d the pod-compressed
-    training step of smollm-360m on (pod 2, data 2). The ranks' collectives
+    training step of smollm-360m on (pod 2, data 2), 16e-k (see the module
+    docstring), 16l each rank's count of smollm-360m's steps against its
+    counting rank's on meta. The ranks' collectives
     copy through host memory: their times and bytes are those of ranks on
     one card, not of four cards. -> the kernels' launches on these paths."""
     import dataclasses
@@ -4872,7 +5043,7 @@ def sharded_phases(dev):
     t1 = time.perf_counter()
     ranks = run_ranks(_sharded_rank, SHARD_RANKS, payload, device="cuda",
                       share=True, timeout=600)
-    log(f"16b-g {SHARD_RANKS} gloo ranks sharing the card: "
+    log(f"16b-l {SHARD_RANKS} gloo ranks sharing the card: "
         f"{time.perf_counter() - t1:.1f} s; seconds on each rank by phase "
         f"{[{k: round(v, 1) for k, v in o['seconds'].items()} for o in ranks]}")
     del payload
@@ -4887,6 +5058,7 @@ def sharded_phases(dev):
             dp_rows)
     _check_family_ranks(ranks, fam_ref, counts)
     del fam_ref
+    _check_count_ranks(ranks, counts)
     for r, out in enumerate(ranks):
         if out["experts"] != cfg.num_experts // SHARD_RANKS:
             raise AssertionError(f"16b rank {r}: {out['experts']} experts")
@@ -5155,18 +5327,16 @@ def main() -> int:
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as out_dir:
-        proc = start_dryrun(out_dir)
+        procs = start_dryrun(out_dir)
         try:
             with torch.no_grad():      # serving: no kernel takes a gradient
                 kernels = phases(dev)
             training_phases(dev)
-            by_path = launch_phases(dev, proc, out_dir)
+            by_path = launch_phases(dev, procs, out_dir)
             by_path["examples"] = examples_phase(dev, smi)
             by_path["sharded"] = sharded_phases(dev)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            stop_dryrun(procs)
     for k in kernels:
         for path, counts in by_path.items():
             k["launches_by_path"][path] = counts[k["name"]]

@@ -1,6 +1,7 @@
 """``chip_smoke.py`` phase 16 alone: the sharded paths on one card (16a an
-NCCL world of one rank; 16b-k four gloo ranks sharing the card), with the
-seconds each rank spent in each sub-phase.
+NCCL world of one rank; 16b-l four gloo ranks sharing the card, 16l each
+rank's count against its counting rank's), with the seconds each rank
+spent in each sub-phase.
 
     python3 scripts/sharded_phases.py
 

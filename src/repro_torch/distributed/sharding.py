@@ -24,7 +24,11 @@ has its gradient summed over them (``training.grad_compress``).
 
 Every call is counted on the mesh's ``world.record`` (op, axes, dtype:
 calls and bytes), with the bytes copied through host memory where gloo
-carries a card's tensors.
+carries a card's tensors. On a counting rank (``launch.mesh.
+make_rank_mesh``, backend ``"count"``) that record is all a call does: it
+returns an empty tensor of the shape and dtype the real collective returns
+and touches no ``torch.distributed``, so a rank's step, backward included,
+runs on meta with its collectives counted.
 
 Rules used in production (DESIGN.md §6):
     batch   -> ('pod', 'data')   [or ('data',) single-pod]
@@ -271,13 +275,29 @@ def _scatter_single():
         dist.reduce_scatter_tensor
 
 
+def _counted(world, op: str, names, x: torch.Tensor) -> bool:
+    """Record one call on ``world``: the one recording path of every
+    transport. True on a counting rank, where the call does nothing else."""
+    world.record.add(op, names, x)
+    return world.backend == "count"
+
+
+def _resized(x: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """An empty tensor like ``x`` whose dim ``dim`` is ``length`` long: what
+    a counting rank's collective returns."""
+    shape = list(x.shape)
+    shape[dim] = length
+    return x.new_empty(shape)
+
+
 def _all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"):
     import torch.distributed as dist
 
     names, world = _group(mesh, axes)
     if world is None:
         return x
-    world.record.add("psum" if op == "sum" else "pmax", names, x)
+    if _counted(world, "psum" if op == "sum" else "pmax", names, x):
+        return x.new_empty(x.shape)
     buf = _staged(world, x.detach().contiguous())
     if buf.data_ptr() == x.data_ptr():            # reduce into a copy
         buf = buf.clone()
@@ -293,7 +313,8 @@ def _all_gather(x: torch.Tensor, mesh, axes, dim: int):
     if world is None:
         return x
     n = mesh.size(names)
-    world.record.add("all_gather", names, x)
+    if _counted(world, "all_gather", names, x):
+        return _resized(x, dim, x.shape[dim] * n)
     src = _staged(world, x.detach().movedim(dim, 0).contiguous())
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
@@ -312,7 +333,8 @@ def _psum_scatter(x: torch.Tensor, mesh, axes, dim: int):
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
                          f"not split {n} ways")
-    world.record.add("psum_scatter", names, x)
+    if _counted(world, "psum_scatter", names, x):
+        return _resized(x, dim, x.shape[dim] // n)
     src = _staged(world, x.detach().movedim(dim, 0).contiguous())
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
@@ -396,7 +418,8 @@ def broadcast(x: torch.Tensor, axes, *, mesh=None) -> torch.Tensor:
     names, world = _group(mesh, axes)
     if world is None:
         return x
-    world.record.add("broadcast", names, x)
+    if _counted(world, "broadcast", names, x):
+        return x
     buf = _staged(world, x.contiguous())
     dist.broadcast(buf, src=world.members[names][0],
                    group=world.groups[names])
@@ -457,8 +480,10 @@ def local_slice(x, spec: Sequence[AxisVal], mesh):
 def rank_rows(tree, mesh, batch_rule, num_microbatches: int = 1):
     """This rank's rows of a tree of global batch arrays (leading dim):
     a block per pod when the rule has ``pod``, then each microbatch's
-    rows split over the rule's other axes (row-major in its order). The
-    whole tree without a world."""
+    rows split over the rule's other axes (row-major in its order), in
+    storage of their own, as a rank holds them (never a view of the global
+    batch, whose storage a count would charge to the rank). The whole tree
+    without a world."""
     axes = tuple(a for a in norm_axes(batch_rule) if a in mesh.shape)
     if mesh.world is None or not axes:
         return tree
@@ -469,7 +494,8 @@ def rank_rows(tree, mesh, batch_rule, num_microbatches: int = 1):
             x = x[block_slices(x.shape[:1], ("pod",), mesh)]
         m = x.view(num_microbatches, -1, *x.shape[1:])
         m = m[(slice(None),) + block_slices(m.shape[1:2], (inner,), mesh)]
-        return m.reshape(-1, *x.shape[1:]).contiguous()
+        return m.reshape(-1, *x.shape[1:]).clone(
+            memory_format=torch.contiguous_format)
 
     return {k: rows(v) for k, v in tree.items()}
 

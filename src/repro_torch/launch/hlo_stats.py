@@ -25,6 +25,19 @@ meta tensors count a step that no memory holds. It records
   its input's. The training step's peak is inside
   ``_softmax_backward_data`` over the fp32 attention scores.
 
+* collectives: given the ``mesh`` the step runs on, the calls and payload
+  bytes its ``World.record`` gained during the call (a real world's or a
+  counting rank's, ``launch.mesh.make_rank_mesh``, alike; a backward's
+  collectives too), and from them the wire bytes a rank moves under the
+  reference's ring model, g the group's size (``repro.launch.hlo_stats``):
+  ``all_gather`` ("all-gather") its result x (g-1)/g, ``psum`` and
+  ``pmax`` ("all-reduce") 2 x result x (g-1)/g, ``psum_scatter``
+  ("reduce-scatter") its operand x (g-1)/g, and ``broadcast`` (its own
+  key) the payload, which each rank but the root receives once. Beside
+  the reference's fields by op, the wire bytes by axes
+  (``collective_bytes_by_axes``, which the roofline prices a link at a
+  time) and the payload by op, axes and dtype (``collective_payload``).
+
 A Python loop is counted as it runs, so trip counts need no estimate
 (``unknown_trip_whiles`` is 0), and one device moves no collective bytes.
 
@@ -68,13 +81,21 @@ class HloStats:
     # arguments), output_bytes (outputs in storages the function
     # allocated), alias_bytes (outputs in the arguments' storages)
     memory: Dict[str, int] = field(default_factory=dict)
+    # "pod,data" -> wire bytes over those axes
+    collective_bytes_by_axes: Dict[str, float] = field(default_factory=dict)
+    # "op/axes/dtype" -> {"calls", "bytes"}: what the ranks handed over
+    collective_payload: Dict[str, Dict[str, int]] = field(
+        default_factory=dict)
 
     @property
     def total_collective_bytes(self) -> float:
         return float(sum(self.collective_bytes.values()))
 
     def to_dict(self):
-        return {
+        """The reference's fields and the port's; the per-axes and payload
+        fields only where a collective ran, so one device's record keeps
+        its keys."""
+        out = {
             "collective_bytes": dict(self.collective_bytes),
             "collective_counts": dict(self.collective_counts),
             "total_collective_bytes": self.total_collective_bytes,
@@ -85,6 +106,41 @@ class HloStats:
                                 "flops": dict(w["flops"])}
                             for k, w in self.kernel_work.items()},
         }
+        if self.collective_payload:
+            out["collective_bytes_by_axes"] = dict(
+                self.collective_bytes_by_axes)
+            out["collective_payload"] = {
+                k: dict(v) for k, v in self.collective_payload.items()}
+        return out
+
+
+# the port's collective -> (the reference's op, wire bytes a rank moves
+# for ``payload`` bytes handed over in a group of g)
+WIRE = {
+    "all_gather": ("all-gather", lambda b, g: float(b) * (g - 1)),  # g b
+    "psum": ("all-reduce", lambda b, g: 2.0 * b * (g - 1) / g),
+    "pmax": ("all-reduce", lambda b, g: 2.0 * b * (g - 1) / g),
+    "psum_scatter": ("reduce-scatter", lambda b, g: b * (g - 1) / g),
+    "broadcast": ("broadcast", lambda b, g: float(b) if g > 1 else 0.0),
+}
+
+
+def _add_collectives(stats: HloStats, mesh, calls, nbytes) -> None:
+    """Fill ``stats``' collective fields from the calls and payload bytes
+    by (op, axes, dtype) that ``mesh``'s record gained."""
+    for key in sorted(calls):
+        op, axes, dt = key
+        name, wire = WIRE[op]
+        b = wire(nbytes[key], mesh.size(axes))
+        stats.collective_counts[name] = (stats.collective_counts.get(name, 0)
+                                         + calls[key])
+        stats.collective_bytes[name] = (stats.collective_bytes.get(name, 0.0)
+                                        + b)
+        ax = ",".join(axes)
+        stats.collective_bytes_by_axes[ax] = (
+            stats.collective_bytes_by_axes.get(ax, 0.0) + b)
+        stats.collective_payload[f"{op}/{ax}/{dt}"] = {
+            "calls": calls[key], "bytes": nbytes[key]}
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -296,14 +352,24 @@ def _storages(tree) -> Dict[int, Any]:
             for t in _tensors(tree)}
 
 
-def count(fn: Callable, *args) -> HloStats:
+def count(fn: Callable, *args, mesh=None) -> HloStats:
     """Run ``fn(*args)`` and count what it dispatched (see the module
-    docstring); its result is dropped."""
+    docstring), and the collectives it ran on ``mesh`` where it has a
+    world; its result is dropped."""
     stats = HloStats()
     arg_st = _storages(args)
     mode = _Counter(stats, {k: s.nbytes() for k, s in arg_st.items()})
+    rec = (mesh.world.record if mesh is not None and mesh.world is not None
+           else None)
+    if rec is not None:
+        calls0, bytes0 = dict(rec.calls), dict(rec.bytes)
     with mode, recording(mode):
         out = fn(*args)
+    if rec is not None:
+        calls = {k: n - calls0.get(k, 0) for k, n in rec.calls.items()
+                 if n > calls0.get(k, 0)}
+        _add_collectives(stats, mesh, calls,
+                         {k: rec.bytes[k] - bytes0.get(k, 0) for k in calls})
     out_st = _storages(out)
     stats.memory = {
         "argument_bytes": sum(n for k, n in mode.args.items()
@@ -320,8 +386,8 @@ def count(fn: Callable, *args) -> HloStats:
 def extrapolate(a: HloStats, b: HloStats, x_a: float, x_b: float,
                 x: float) -> HloStats:
     """The counts at ``x`` of a step whose every count is affine in ``x``
-    (memory included), from its counts at ``x_a`` and ``x_b``; both must
-    have called the same kernels."""
+    (memory and collectives included), from its counts at ``x_a`` and
+    ``x_b``; both must have called the same kernels and collectives."""
     t = (x - x_a) / (x_b - x_a)
 
     def lerp(u, v, key=""):
@@ -333,8 +399,8 @@ def extrapolate(a: HloStats, b: HloStats, x_a: float, x_b: float,
         y = u + (v - u) * t
         return int(round(y)) if isinstance(u, int) else y
 
-    return HloStats(dot_flops=lerp(a.dot_flops, b.dot_flops),
-                    dot_flops_by_dtype=lerp(a.dot_flops_by_dtype,
-                                            b.dot_flops_by_dtype),
-                    kernel_work=lerp(a.kernel_work, b.kernel_work),
-                    memory=lerp(a.memory, b.memory))
+    fields = ("dot_flops", "dot_flops_by_dtype", "kernel_work", "memory",
+              "collective_counts", "collective_bytes",
+              "collective_bytes_by_axes", "collective_payload")
+    return HloStats(**{f: lerp(getattr(a, f), getattr(b, f), f)
+                       for f in fields})

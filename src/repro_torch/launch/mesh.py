@@ -29,6 +29,11 @@ ranks than cards raises.
 joins it with a deadline: a rank that fails fails the call with its
 traceback, and a world that hangs is killed.
 
+A counting rank (:func:`make_rank_mesh`) is one rank of a mesh on the
+meta device, with no world at all: its collectives are recorded and not
+run, so one process counts a rank of the production meshes, 256 or 512
+ranks, that no host could start.
+
 A mesh names its devices without touching them, so importing this module
 touches no device."""
 
@@ -44,7 +49,8 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from datetime import timedelta
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -89,7 +95,7 @@ class World:
     rank: int
     coords: Dict[str, int]
     device: torch.device
-    backend: str                                   # "nccl" or "gloo"
+    backend: str                         # "nccl", "gloo" or "count"
     staged: bool                                   # copies through the host
     groups: Dict[Tuple[str, ...], Any]             # axes -> ProcessGroup
     members: Dict[Tuple[str, ...], Tuple[int, ...]]  # axes -> global ranks
@@ -157,6 +163,21 @@ def _world_device(device, rank: int, share: bool, n: int) -> torch.device:
     return devs[int(os.environ.get("LOCAL_RANK", rank))]
 
 
+def mesh_groups(shape: Sequence[int], axes: Sequence[str]
+                ) -> Iterator[Tuple[Tuple[str, ...], Tuple[int, ...]]]:
+    """Every process group of a mesh laid out row-major, as (the axes it
+    spans, its global ranks in rank order): for each set of axes in one
+    order, one group for every choice of the other axes' coordinates."""
+    grid = np.arange(int(np.prod(shape))).reshape(tuple(shape))
+    for k in range(1, len(axes) + 1):
+        for sub in itertools.combinations(range(len(axes)), k):
+            keep = [i for i in range(len(axes)) if i not in sub]
+            moved = np.moveaxis(grid, keep, list(range(len(keep))))
+            for fixed in itertools.product(*(range(shape[i]) for i in keep)):
+                yield (tuple(axes[i] for i in sub),
+                       tuple(int(r) for r in moved[fixed].reshape(-1)))
+
+
 def _world_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device,
                 share: bool) -> Mesh:
     import torch.distributed as dist
@@ -169,21 +190,14 @@ def _world_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device,
     dev = _world_device(device, rank, share, n)
     backend = "nccl" if dev.type == "cuda" and not share else "gloo"
     coords = dict(zip(axes, (int(c) for c in np.unravel_index(rank, shape))))
-    grid = np.arange(n).reshape(shape)
     groups, members = {}, {}
     # every rank creates every group, in one order, as torch.distributed
     # requires; a rank keeps the groups it belongs to
-    for k in range(1, len(axes) + 1):
-        for sub in itertools.combinations(range(len(axes)), k):
-            keep = [i for i in range(len(axes)) if i not in sub]
-            moved = np.moveaxis(grid, keep, list(range(len(keep))))
-            for fixed in itertools.product(*(range(shape[i]) for i in keep)):
-                ranks = tuple(int(r) for r in moved[fixed].reshape(-1))
-                g = dist.new_group(list(ranks), backend=backend,
-                                   timeout=timedelta(seconds=WORLD_TIMEOUT_S))
-                if rank in ranks:
-                    names = tuple(axes[i] for i in sub)
-                    groups[names], members[names] = g, ranks
+    for names, ranks in mesh_groups(shape, axes):
+        g = dist.new_group(list(ranks), backend=backend,
+                           timeout=timedelta(seconds=WORLD_TIMEOUT_S))
+        if rank in ranks:
+            groups[names], members[names] = g, ranks
     world = World(rank=rank, coords=coords, device=dev, backend=backend,
                   staged=share and dev.type == "cuda", groups=groups,
                   members=members)
@@ -212,12 +226,41 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda",
     return _mesh(tuple(shape), tuple(axes), device, share)
 
 
+# the reference's production meshes (``repro.launch.mesh.
+# make_production_mesh``), by the dry run's name for each
+PRODUCTION = {"single": {"data": 16, "model": 16},
+              "multi": {"pod": 2, "data": 16, "model": 16}}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production shapes, (16, 16) or (2, 16, 16), with no
     devices: for the sharding rules only."""
-    if multi_pod:
-        return Mesh({"pod": 2, "data": 16, "model": 16})
-    return Mesh({"data": 16, "model": 16})
+    return Mesh(dict(PRODUCTION["multi" if multi_pod else "single"]))
+
+
+def make_rank_mesh(shape: Sequence[int], axes: Sequence[str],
+                   coords: Dict[str, int]) -> Mesh:
+    """One counting rank of a (``shape``, ``axes``) mesh, at ``coords``, on
+    the meta device: a :class:`World` of backend ``"count"`` with the
+    rank's coordinates and its groups' members but no process group.
+    ``distributed.sharding``'s collectives record each call on its
+    ``record`` as a real world's do and return empty tensors of the shapes
+    the real collective returns, so a rank's step (``launch.steps``) runs
+    and is counted (``launch.hlo_stats.count``) without the other ranks
+    and without ``torch.distributed``."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if set(coords) != set(axes) or any(
+            not 0 <= coords[a] < n for a, n in zip(axes, shape)):
+        raise ValueError(f"coordinates {coords} are not a rank of "
+                         f"{dict(zip(axes, shape))}")
+    rank = int(np.ravel_multi_index([coords[a] for a in axes], shape))
+    members = {names: ranks for names, ranks in mesh_groups(shape, axes)
+               if rank in ranks}
+    meta = torch.device("meta")
+    world = World(rank=rank, coords={a: int(coords[a]) for a in axes},
+                  device=meta, backend="count", staged=False, groups={},
+                  members=members)
+    return Mesh(dict(zip(axes, shape)), (meta,), world)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device="cuda",

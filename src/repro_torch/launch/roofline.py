@@ -1,15 +1,26 @@
-"""Roofline analysis from dry-run records, for one NVIDIA H100 (port of
+"""Roofline analysis from dry-run records, for NVIDIA H100s (port of
 ``repro.launch.roofline``; the reference's peaks are a TPU's, these are
 the H100 SXM's, NVIDIA's data sheet, dense, at the 700 W limit).
 
-Per (arch x shape) cell, three per-chip time terms:
+Per (arch x shape x mesh) cell, three per-chip time terms:
 
     T_compute = sum over dtypes of FLOPs / that dtype's peak
                 (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32)
     T_memory  = (argument + output bytes) / HBM_bw      (3.35 TB/s)
-    T_coll    = collective bytes / link_bw              (NVLink 450 GB/s
-                                                         per direction; 0
-                                                         on one chip)
+    T_coll    = sum over the axes a rank's collectives span of their wire
+                bytes / the slowest link their groups cross (0 on one
+                chip)
+
+Links (``link_bw``): ranks are laid out row-major over the mesh, as
+``launch.mesh`` lays them out, 8 consecutive ranks to a node, as in
+NVIDIA's DGX H100 reference layout. A group whose ranks all sit in one
+node rides NVLink 4, 450 GB/s a direction a card (``LINK_BW``; 900 GB/s
+both ways, the H100 SXM data sheet); any other group crosses the nodes'
+network, one 400 Gb/s InfiniBand NDR port a card, 50 GB/s a direction
+(``NET_BW``; the DGX H100's 8 ConnectX-7 ports). On the production meshes
+that is every group: ``model`` = 16 comes last in row-major order, so
+each ``model`` group spans two nodes, and ``data`` and ``pod`` groups
+stride across nodes, so their T_coll is priced at 50 GB/s throughout.
 
 Sources:
   * FLOPs are the dry run's counts (``hlo_stats.count``): the aten dots by
@@ -20,6 +31,9 @@ Sources:
     bound on HBM traffic (weights/caches/optimizer state read once,
     outputs written once); temp bytes are reported as footprint, not
     traffic.
+  * Collective bytes are the ring model's wire bytes a rank moves
+    (``hlo_stats.WIRE``), by the axes they cross
+    (``collective_bytes_by_axes``).
 
 MODEL_FLOPS (the "useful" numerator) = 6·N_active·tokens (train) or
 2·N_active·tokens (serve), logical (unpadded) parameter counts.
@@ -40,13 +54,20 @@ from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.configs.base import SHAPES_BY_NAME, ShapeSpec
 from repro_torch.configs.registry import ARCHITECTURES
+from repro_torch.launch.mesh import PRODUCTION, mesh_groups
 
 PEAK_FLOPS = 989e12          # bf16 (and fp16) per chip, dense, tensor cores
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 PEAKS = {"bf16": PEAK_FLOPS, "f16": PEAK_FLOPS, "f32": FP32_FLOPS}
 HBM_BW = 3.35e12             # bytes/s, HBM3
 LINK_BW = 450e9              # bytes/s per direction, NVLink 4
+NET_BW = 50e9                # bytes/s per direction, a 400 Gb/s NDR port
+NODE = 8                     # cards a node, on one NVLink switch
 HBM_BYTES = 80e9             # device memory
+# the dry run's mesh names -> their shapes (axis -> size, in order)
+MESH_SHAPES = {"1x1": {"data": 1, "model": 1},
+               "16x16": PRODUCTION["single"],
+               "pod2x16x16": PRODUCTION["multi"]}
 
 
 def compute_time(flops_by_dtype: Dict[str, float]) -> float:
@@ -61,6 +82,24 @@ def kernel_bound(work) -> Tuple[float, str]:
     t_bytes = work.bytes / HBM_BW * 1e3
     t_ops = compute_time(work.flops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def link_bw(shape: Dict[str, int], axes: Tuple[str, ...]) -> float:
+    """Bytes/s a direction of the slowest link a group over ``axes`` of a
+    ``shape`` mesh crosses: NVLink where every group lies in one node of
+    ``NODE`` consecutive ranks, else the nodes' network."""
+    one_node = all(len({r // NODE for r in ranks}) == 1
+                   for names, ranks in mesh_groups(tuple(shape.values()),
+                                                   tuple(shape))
+                   if names == axes)
+    return LINK_BW if one_node else NET_BW
+
+
+def collective_time(hlo: dict, shape: Dict[str, int]) -> float:
+    """T_coll of a record's counts on a ``shape`` mesh: each axes' wire
+    bytes over its link."""
+    return sum(b / link_bw(shape, tuple(ax.split(",")))
+               for ax, b in hlo.get("collective_bytes_by_axes", {}).items())
 
 
 @dataclass
@@ -198,12 +237,11 @@ def cell_from_record(rec: dict) -> CellRoofline:
     ma = rec["memory_analysis"]
     traffic = ma["argument_bytes"] + ma["output_bytes"]
     flops = flops_by_dtype(rec["hlo"])
-    coll = rec["hlo"]["total_collective_bytes"]
     return CellRoofline(
         arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"], chips=chips,
         t_compute=compute_time(flops),
         t_memory=traffic / HBM_BW,
-        t_coll=coll / LINK_BW,
+        t_coll=collective_time(rec["hlo"], MESH_SHAPES[rec["mesh"]]),
         model_flops_chip=model_flops_per_chip(rec["arch"], rec["shape"],
                                               chips),
         hlo_flops_chip=sum(flops.values()),
@@ -222,9 +260,12 @@ def load_cell(path: Path) -> Optional[CellRoofline]:
 
 
 def load_all(dryrun_dir: str, mesh: str = "single") -> List[CellRoofline]:
-    tag = "single" if mesh == "single" else "multi"
+    """The ``ok`` records of one mesh: ``"one"`` (one device), ``"single"``
+    (a rank of 16 x 16) or ``"multi"`` (of 2 x 16 x 16)."""
+    if mesh not in ("one", "single", "multi"):
+        raise ValueError(f"no mesh {mesh!r}: one, single or multi")
     cells = []
-    for p in sorted(Path(dryrun_dir).glob(f"*__{tag}.json")):
+    for p in sorted(Path(dryrun_dir).glob(f"*__{mesh}.json")):
         c = load_cell(p)
         if c:
             cells.append(c)
@@ -254,7 +295,8 @@ def table(cells: List[CellRoofline]) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dryrun", default="results/dryrun/baseline")
-    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--mesh", default="single",
+                    choices=["one", "single", "multi"])
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     cells = load_all(args.dryrun, args.mesh)

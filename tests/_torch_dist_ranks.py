@@ -349,3 +349,41 @@ def _prefill_and_decode(model, params, tokens, op, sample, steps=4):
             lengths = lengths + 1
         out.append(logits.float().cpu().numpy())
         return out, op.launches - before
+
+
+# the real ranks against the counting ranks (test_torch_rank_count.py):
+# both meshes in one world, the families reduced, a serve and a train step
+COUNT_MESHES = {"data x model": ((2, 2), ("data", "model")),
+                "pod x data x model": ((2, 1, 2), ("pod", "data", "model"))}
+COUNT_ARCHS = ("smollm-360m", "dbrx-132b", "hymba-1.5b",
+               "seamless-m4t-medium", "xlstm-125m")
+COUNT_STEPS = {"serve": ("decode", 64, 4), "train": ("train", 64, 4)}
+
+
+def world_counts(rank: int):
+    """On each mesh of ``COUNT_MESHES``, each family's serve (decode) and
+    ``train_rules`` step (``pod_compress`` on, the default) counted twice:
+    run on this rank's real world, and on a counting rank at the same
+    coordinates -> {(mesh, arch, step): (real counts, counting rank's)},
+    each ``hlo_stats.HloStats.to_dict()``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.mesh import make_mesh, make_rank_mesh
+    from repro_torch.launch.steps import build_step
+
+    out = {}
+    for name, (shape, axes) in COUNT_MESHES.items():
+        mesh = make_mesh(shape, axes, device="cpu")
+        counting = make_rank_mesh(shape, axes, mesh.world.coords)
+        for arch in COUNT_ARCHS:
+            cfg = config(arch)
+            for step, (kind, seq, batch) in COUNT_STEPS.items():
+                spec = ShapeSpec(step, seq, batch, kind)
+                real = build_step(cfg, spec, mesh)
+                got = hlo_stats.count(real.fn, *real.make_args(0),
+                                      mesh=mesh)
+                meta = build_step(cfg, spec, counting)
+                want = hlo_stats.count(meta.fn, *meta.arg_specs,
+                                       mesh=counting)
+                out[(name, arch, step)] = (got.to_dict(), want.to_dict())
+    return out

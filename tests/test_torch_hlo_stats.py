@@ -1,7 +1,16 @@
 """``repro_torch.launch.hlo_stats.count``: dot FLOPs, kernel work and live
 bytes of what a step dispatches (the counterpart of ``tests/
-test_hlo_stats.py``), the kernels' work formulas and their meta branch, and
-the train step's dot FLOPs against the reference's HLO count."""
+test_hlo_stats.py``), the kernels' work formulas and their meta branch,
+the train step's dot FLOPs against the reference's HLO count, and the
+collectives' wire bytes against the reference's ring model on its own
+compiled ``shard_map`` program."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import pytest
 import torch
@@ -26,7 +35,8 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op, ssd_scan_work
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.launch import hlo_stats
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import make_local_mesh, make_rank_mesh
 from repro_torch.launch.roofline import kernel_bound
 from repro_torch.launch.steps import build_step
 
@@ -310,6 +320,98 @@ def test_extrapolate_is_affine_and_exact():
     assert c.memory == {"peak_bytes": 340}
     with pytest.raises(ValueError):
         hlo_stats.extrapolate(a, hlo_stats.HloStats(), 2, 3, 4)
+
+
+def test_extrapolate_carries_the_collectives():
+    """Every collective field lies on the line too (calls rounded to whole
+    calls), and two counts that ran different collectives refuse."""
+    def stats(n):
+        s = hlo_stats.HloStats(dot_flops=1.0)
+        s.collective_counts = {"all-gather": n}
+        s.collective_bytes = {"all-gather": 3.0 * n}
+        s.collective_bytes_by_axes = {"data": 3.0 * n}
+        s.collective_payload = {"all_gather/data/bfloat16":
+                                {"calls": n, "bytes": 4 * n}}
+        return s
+    c = hlo_stats.extrapolate(stats(2), stats(3), 2, 3, 16)
+    assert c.to_dict() == dict(stats(16).to_dict(), dot_flops=1.0)
+    other = stats(3)
+    other.collective_payload = {"psum/data/float32": {"calls": 3,
+                                                      "bytes": 12}}
+    with pytest.raises(ValueError):
+        hlo_stats.extrapolate(stats(2), other, 2, 3, 4)
+
+
+REFERENCE_WIRE = r"""
+import os, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.distributed.sharding import compat_shard_map
+from repro.launch.hlo_stats import analyze_hlo
+from repro.launch.mesh import compat_make_mesh
+
+mesh = compat_make_mesh((4,), ("model",))
+
+
+def body(x):
+    return (jax.lax.all_gather(x, "model", axis=1, tiled=True),
+            jax.lax.psum(x, "model"),
+            jax.lax.psum_scatter(x, "model", scatter_dimension=0, tiled=True))
+
+
+f = compat_shard_map(body, mesh=mesh, in_specs=P("model"),
+                     out_specs=(P("model"), P("model"), P("model")))
+x = jax.ShapeDtypeStruct((4 * 8, 12), jnp.float32)
+hs = analyze_hlo(jax.jit(f).lower(x).compile().as_text(), total_devices=4)
+print("REFERENCE " + json.dumps(hs.to_dict()))
+"""
+
+
+def test_wire_bytes_equal_the_references_ring_model():
+    """One ``all_gather``, one ``psum`` and one ``psum_scatter`` of an fp32
+    [8, 12] block over 4 ranks: the reference's ``analyze_hlo`` of its
+    compiled ``shard_map`` program (a subprocess with 4 forced host
+    devices) and the port's count on a counting rank of the same 4 give
+    the same calls and wire bytes by op. (fp32: XLA's CPU backend carries
+    a bf16 collective in fp32, so its HLO would count twice the bytes a
+    bf16 transport moves.)"""
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
+           "HOME": str(Path.home())}
+    if os.environ.get("JAX_PLATFORMS"):
+        env["JAX_PLATFORMS"] = os.environ["JAX_PLATFORMS"]
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE_WIRE)],
+                       capture_output=True, text=True, env=env, timeout=300,
+                       cwd=Path(__file__).resolve().parents[1])
+    line = [x for x in r.stdout.splitlines() if x.startswith("REFERENCE ")]
+    assert r.returncode == 0 and line, r.stderr[-3000:]
+    want = json.loads(line[0][len("REFERENCE "):])
+    mesh = make_rank_mesh((4,), ("model",), {"model": 1})
+
+    def body(x):
+        return (sh.all_gather(x, "model", dim=1, mesh=mesh),
+                sh.psum(x, "model", mesh=mesh),
+                sh.psum_scatter(x, "model", dim=0, mesh=mesh))
+
+    got = hlo_stats.count(body, torch.empty((8, 12), device="meta"),
+                          mesh=mesh)
+    assert got.collective_counts == want["collective_counts"]
+    assert got.collective_bytes == want["collective_bytes"]
+    assert got.total_collective_bytes == want["total_collective_bytes"] > 0
+    assert got.collective_bytes_by_axes == {
+        "model": want["total_collective_bytes"]}
+
+
+def test_one_device_counts_no_collective():
+    """Without a world a step runs no collective: the record keeps the
+    reference's keys and no per-axes field."""
+    b = build_step(reduced_config(ARCHITECTURES["smollm-360m"]),
+                   SMALL["decode"], make_local_mesh(device="meta"))
+    d = hlo_stats.count(b.fn, *b.arg_specs, mesh=make_local_mesh(
+        device="meta")).to_dict()
+    assert d["collective_bytes"] == {} and d["total_collective_bytes"] == 0
+    assert "collective_bytes_by_axes" not in d
+    assert "collective_payload" not in d
 
 
 @pytest.mark.parametrize("device", ["meta", "cpu"])
