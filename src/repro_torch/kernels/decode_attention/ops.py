@@ -1,8 +1,13 @@
 """Checked decode-attention entry point (model layout).
 
 CPU tensors take the plain version; CUDA tensors launch the CUDA kernel or
-raise (any Smax, G <= 16, even D <= 128, bf16); meta tensors get an empty
-output. ``decode_attention_op.launches`` counts kernel launches;
+raise (any Smax, G <= 16, even D <= 128, bf16, K and V 4-byte aligned);
+meta tensors get an empty output. ``decode_attention_op.launches`` counts
+the calls that launched the kernel, one each; a call makes one CUDA launch,
+or two where a span (Smax, or the window) past 32,768 positions is merged
+through a workspace, and ``decode_attention_op.cuda_launches`` adds those up where
+the call launches (unlike ``launches``, it is not moved from a graph's
+capture to its replays: read it over eager calls).
 :func:`decode_attention_work` is a call's work."""
 
 from __future__ import annotations
@@ -81,7 +86,11 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
 
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if B:
-        decode_attention(q.view(B, Hq, D), k_cache, v_cache, lengths, out,
-                         window=window, scale=softmax_scale(scale, D))
+        decode_attention_op.cuda_launches += decode_attention(
+            q.view(B, Hq, D), k_cache, v_cache, lengths, out, window=window,
+            scale=softmax_scale(scale, D))
         decode_attention_op.launches += 1
     return out.view(B, 1, Hq, D)
+
+
+decode_attention_op.cuda_launches = 0

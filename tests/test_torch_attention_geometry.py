@@ -1,16 +1,24 @@
 """Launch geometry of the two attention kernels, computed in Python and
 passed to the CUDA sources, checked on the CPU: the prefill kernel's M tiles
 (flattened (query row, head in group) pairs) and the key range each tile
-loads; the decode kernel's cluster size and how its blocks split a sample's
-valid positions."""
+loads; the decode kernel's split (blocks per (kv head, sample)), how its
+blocks split a sample's valid positions, its shared memory and the merge's
+workspace."""
+
+import inspect
 
 import pytest
 
 from repro_torch.kernels.decode_attention.decode_attention import (
-    BLOCK_G, MAX_CLUSTER, block_warps, cluster_size, cluster_slices,
-    head_groups)
+    BLOCK_KEYS, FILL, MAX_CLUSTER, MAX_KEYS, MAX_SPLITS, PAD, ROWS,
+    SMS, SPLIT_KEYS, SPLIT_MAX_KEYS, TILE_KEYS, WARPS,
+    blocks_per_sm, padded_dim, split_slices, splits, wave)
+from repro_torch.kernels.decode_attention.decode_attention import (
+    geometry as decode_geometry)
 from repro_torch.kernels.flash_attention.flash_attention import (
     M_TILE, geometry, tile_key_range, tile_pairs)
+
+SMEM_LIMIT = 232448   # shared memory an H100 block may use (227 KB)
 
 PREFILL_SHAPES = [
     # (B, Sq, Hq, Hkv, D)
@@ -76,61 +84,141 @@ def test_tile_key_range_holds_every_valid_key(case):
 @pytest.mark.parametrize("window", [0, 8, 20, 300])
 def test_cluster_slices_cover_each_valid_position_once(Smax, window):
     """For lengths 0, 1, Smax, past Smax and in between, windowed or not,
-    the blocks of a cluster read each valid position exactly once and
-    nothing else, at every cluster size up to MAX_CLUSTER."""
+    the blocks of a (kv head, sample) read each valid position exactly once
+    and nothing else, at every split from 1 to the largest the wrapper
+    chooses (``MAX_SPLITS``; the cluster sizes and the workspace merge)."""
     for length in sorted({0, 1, 2, 7, Smax // 2, Smax - 1, Smax, Smax + 5}):
         lo = max(0, length - window) if window > 0 else 0
         valid = list(range(lo, min(length, Smax)))
-        for c in range(1, MAX_CLUSTER + 1):
-            slices = cluster_slices(length, Smax, window, c)
-            assert len(slices) == c
+        for p in [*range(1, MAX_CLUSTER + 1), 9, 16, 53, 128, MAX_SPLITS]:
+            slices = split_slices(length, Smax, window, p)
+            assert len(slices) == p
             got = [j for s0, s1 in slices for j in range(s0, s1)]
-            assert got == valid, (length, c)
-            # even slices: each block but the last ones takes ceil(n / c)
-            assert max(s1 - s0 for s0, s1 in slices) == -(-len(valid) // c)
+            assert got == valid, (length, p)
+            # even slices: each block but the last ones takes ceil(n / p)
+            assert max(s1 - s0 for s0, s1 in slices) == -(-len(valid) // p)
+
+
+# (B, Hkv, G, D, Smax, window): the paths' decode shapes (smollm, hymba's
+# ring and global cache, seamless, internvl2, dbrx, the tensor-parallel
+# ranks, the scenario model), the reference cells' long caches, and edges
+DECODE_SHAPES = [
+    (8, 5, 3, 64, 256, 0), (8, 5, 3, 64, 256, 32), (8, 5, 3, 64, 2048, 0),
+    (8, 5, 5, 64, 2048, 0), (8, 5, 5, 64, 3200, 0), (8, 16, 1, 64, 1024, 0),
+    (8, 2, 7, 64, 2112, 0), (8, 8, 6, 128, 512, 0), (8, 1, 4, 64, 256, 0),
+    (4, 1, 13, 64, 2048, 0), (4, 2, 2, 16, 64, 0), (32, 5, 3, 64, 32768, 0),
+    (1, 5, 5, 64, 524288, 0), (1, 5, 5, 64, 65536, 0), (1, 1, 1, 8, 8, 0),
+    (0, 5, 3, 64, 256, 0), (64, 8, 8, 128, 4096, 0), (1, 5, 5, 64, 1 << 22,
+                                                       0),
+]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_split_fills_the_card_and_keeps_blocks_busy(shape):
+    """Up to MAX_CLUSTER * MAX_KEYS positions the split is a cluster (a
+    power of two <= 8, one launch): no more blocks than slices of
+    BLOCK_KEYS need, as many as one ``wave(D)`` of resident blocks holds
+    (five sixths of the slots shared memory leaves an SM), and no
+    block walks more than MAX_KEYS positions. Past that, a workspace merge
+    (9..MAX_SPLITS blocks, two launches) with SPLIT_KEYS to SPLIT_MAX_KEYS
+    positions a block and two blocks an SM, unless the positions or
+    MAX_SPLITS run out first."""
+    B, Hkv, G, D, Smax, window = shape
+    geo = decode_geometry(B, Hkv, G, D, Smax, window)
+    p, pairs = geo.splits, B * Hkv
+    span = min(Smax, window) if window > 0 else Smax
+    assert geo.blocks == p * pairs
+    # a cluster's blocks are consecutive along x; the workspace split puts
+    # the kv heads there, so blocks that start together read one position
+    # row of adjacent heads
+    assert geo.grid == ((p, Hkv, B) if geo.cluster else (Hkv, p, B))
+    if geo.cluster:
+        assert span <= MAX_CLUSTER * MAX_KEYS or pairs == 0
+        assert 1 <= p <= MAX_CLUSTER and p & (p - 1) == 0
+        assert geo.launches == 1 and geo.workspace_floats == 0
+        assert p == 1 or -(-span // (p // 2)) > BLOCK_KEYS
+        assert -(-span // p) <= MAX_KEYS
+        assert (p * pairs <= wave(D) or p == 1
+                or -(-span // (p // 2)) > MAX_KEYS)
+        assert (p == MAX_CLUSTER or -(-span // p) <= BLOCK_KEYS
+                or 2 * p * pairs > wave(D) or pairs == 0)
+    else:
+        assert span > MAX_CLUSTER * MAX_KEYS
+        assert MAX_CLUSTER < p <= MAX_SPLITS and geo.launches == 2
+        assert span // p >= SPLIT_KEYS
+        assert (geo.blocks >= FILL or p in (MAX_SPLITS, span // SPLIT_KEYS))
+        assert -(-span // p) <= SPLIT_MAX_KEYS or p in (MAX_SPLITS,
+                                                        span // SPLIT_KEYS)
 
 
 @pytest.mark.parametrize("B,Hkv,Smax,window", [
-    (8, 5, 256, 0), (8, 5, 256, 32), (8, 5, 2048, 0), (1, 1, 8, 0),
-    (64, 8, 4096, 0), (4, 2, 32, 0), (2, 2, 100, 20), (0, 5, 256, 0)])
-def test_cluster_size_is_portable_and_divides_the_grid(B, Hkv, Smax, window):
-    c = cluster_size(B, Hkv, Smax, window)
-    assert 1 <= c <= MAX_CLUSTER and c & (c - 1) == 0
-    grid = (c, Hkv, B)
-    assert grid[0] % c == 0
-    span = min(Smax, window) if window > 0 else Smax
-    assert c == 1 or 16 * (c // 2) < span     # no block left without work
+    (8, 5, 256, 0), (32, 5, 32768, 0), (1, 5, 524288, 0), (8, 5, 2048, 16)])
+def test_split_depends_only_on_static_shapes(B, Hkv, Smax, window):
+    """The split is a function of (B, Hkv, D, Smax, window): not of the
+    lengths, nor of G, so a decode step captured in a CUDA graph stays
+    valid as the lengths move. D enters only through the blocks an SM
+    holds: widths of one instance split alike."""
+    assert list(inspect.signature(splits).parameters) == [
+        "B", "Hkv", "D", "Smax", "window"]
+    for D in (64, 128):
+        p = splits(B, Hkv, D, Smax, window)
+        for G in (1, 5, 16):
+            assert decode_geometry(B, Hkv, G, D, Smax, window).splits == p
+        for d in (D - 2, D - 14):
+            assert splits(B, Hkv, d, Smax, window) == p
 
 
-@pytest.mark.parametrize("G,groups,sizes", [
-    (1, 1, [1]), (5, 1, [5]), (8, 1, [8]), (9, 2, [5, 4]),
-    (13, 2, [7, 6]), (16, 2, [8, 8])])
-def test_head_groups_keep_a_block_within_eight_heads(G, groups, sizes):
-    """The kernel cuts a kv head's G query heads into ``head_groups(G)``
-    grid rows of ceil(G / groups) heads but the last (csrc/
-    decode_attention.cu: ``Gb``, ``g0``): every head in one group, none
-    holding more than ``BLOCK_G``; hymba at model = 2 (G = 13) takes 7
-    and 6. At G <= 8 one group: the launch every earlier shape had."""
-    assert head_groups(G) == groups
-    gb = -(-G // groups)
-    got = [min(gb, G - g0) for g0 in range(0, G, gb)]
-    assert got == sizes and sum(got) == G
-    assert max(got) <= BLOCK_G
+@pytest.mark.parametrize("D", [2, 8, 16, 20, 32, 48, 64, 100, 128])
+def test_shared_memory_fits_the_ring_and_the_merge(D):
+    """A block's dynamic shared memory is the q tile and the ring (at
+    least three stages of 64 keys, K and V, rows of the instance's width
+    plus 8 bf16); it fits the 227 KB a block may use, two blocks fit an SM
+    (three at D <= 64), and the merge's fp32 scratch, aliased on the ring
+    (csrc/decode_attention.cu: ``scratch_bytes``), fits in the ring."""
+    geo = decode_geometry(8, 5, 3, D, 256, 0)
+    w = padded_dim(D)
+    assert w % 16 == 0 and D <= w and (w == 16 or w // 2 < D)
+    assert geo.stages >= 3 and TILE_KEYS >= 64
+    assert geo.tile_bytes == 2 * TILE_KEYS * (w + PAD) * 2
+    assert geo.smem_bytes == geo.stages * geo.tile_bytes + ROWS * (w + PAD) * 2
+    assert geo.smem_bytes <= SMEM_LIMIT
+    per_sm = blocks_per_sm(D)
+    assert per_sm == (3 if w <= 64 else 2)
+    assert per_sm * (geo.smem_bytes + 1024) <= 233472   # 228 KB an SM
+    scratch = ((WARPS + 1) * 16 * w + (2 * WARPS + 2 + MAX_CLUSTER) * 16) * 4
+    assert scratch <= geo.stages * geo.tile_bytes
 
 
-def test_headline_decode_cluster():
-    # smollm-360m at 8 slots: 40 (kv head, sample) pairs, Smax 256
-    assert cluster_size(8, 5, 256, 0) == 8
-    assert cluster_size(8, 5, 2048, 0) == 8
-    assert cluster_size(64, 5, 256, 0) == 1        # 320 pairs fill the card
+@pytest.mark.parametrize("B,Hkv,G,D,Smax,p", [
+    (1, 5, 5, 64, 524288, 128), (1, 5, 5, 64, 65536, 53),
+    (2, 1, 16, 128, 8192, 16), (3, 2, 1, 20, 9000, 17),
+    (1, 5, 5, 64, 2048, 8), (4, 2, 7, 100, 4096, 9)])
+def test_workspace_holds_the_partials(B, Hkv, G, D, Smax, p):
+    """Above MAX_CLUSTER blocks each block writes its partial: acc [G][D]
+    and m, l [G] in fp32, at [b][h][block] (csrc/decode_attention.cu); the
+    workspace is exactly those, and a cluster needs none."""
+    geo = decode_geometry(B, Hkv, G, D, Smax, 0, p)
+    partials = B * Hkv * p
+    want = 0 if p <= MAX_CLUSTER else partials * (G * D + 2 * G)
+    assert geo.workspace_floats == want
+    assert geo.launches == (1 if p <= MAX_CLUSTER else 2)
 
 
-@pytest.mark.parametrize("Smax,window,c,warps", [
-    (256, 0, 8, 2),       # 32 positions a block: one step of two warps
-    (2048, 0, 8, 4),      # 256 a block
-    (2048, 32, 2, 2),     # the window bounds the slice, not Smax
-    (128, 0, 2, 2),       # 64 a block: two steps of two warps
-    (130, 0, 2, 4),
-    (100, 0, 1, 4)])
-def test_block_warps(Smax, window, c, warps):
-    assert block_warps(Smax, window, c) == warps
+@pytest.mark.parametrize("shape,want", [
+    # hymba-1.5b x long_500k's global caches: 64 blocks of 8,192
+    # positions a (kv head, sample), 320 blocks, a workspace merge
+    ((1, 5, 5, 64, 524288, 0), (64, 320, False)),
+    # smollm-360m x decode_32k at B 32: clusters of 8, 1,280 blocks
+    ((32, 5, 3, 64, 32768, 0), (8, 1280, True)),
+    # smollm-360m served at 8 slots, Smax 256: clusters of 2, 128
+    # positions a block at the longest
+    ((8, 5, 3, 64, 256, 0), (2, 80, True)),
+    # dbrx-132b (8 / 1 kv heads of 128 at 8 slots, Smax 512): 2 blocks, so
+    # 128 blocks hold the card's two-an-SM slots once
+    ((8, 8, 6, 128, 512, 0), (2, 128, True)),
+])
+def test_headline_decode_geometry(shape, want):
+    geo = decode_geometry(*shape)
+    assert (geo.splits, geo.blocks, geo.cluster) == want
+    if shape[4] == 524288:
+        assert geo.blocks >= 2 * SMS

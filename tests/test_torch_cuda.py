@@ -188,6 +188,21 @@ DECODE_CASES = [
     (4, 13, 1, 64, 256, [0, 1, 129, 256], 0),
     (3, 18, 2, 64, 100, [100, 0, 37], 0),
     (2, 32, 2, 128, 300, [300, 150], 16),
+    # caches longer than 8 clusters' blocks walk (32,768 positions), so the
+    # split passes 8 blocks a (kv head, sample) and a second launch merges
+    # the partials: B 1 at G 5 (53 blocks); lengths 0, 1 and Smax; a window
+    # (the split follows the window's span: 27 blocks)
+    (1, 25, 5, 64, 65536, [65536], 0),
+    (3, 25, 5, 64, 65536, [0, 1, 65536], 0),
+    (2, 15, 5, 64, 65536, [65536, 50000], 40000),
+    # G 13 and 16 in one block, G 1, D 128, and the 4-byte paths (D 20, D
+    # 100), each past 8 blocks
+    (3, 13, 1, 64, 40000, [40000, 1, 0], 0),
+    (2, 16, 1, 64, 40000, [40000, 1000], 0),
+    (1, 4, 4, 64, 65536, [60000], 0),
+    (1, 8, 1, 128, 65536, [65536], 0),
+    (2, 6, 2, 20, 40000, [40000, 7], 0),
+    (1, 8, 1, 100, 40000, [40000], 0),
 ]
 
 
@@ -299,17 +314,44 @@ def test_flash_attention_kernel_noncausal(dev, case):
     _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
 
 
-def test_decode_attention_replays_in_a_cuda_graph(dev):
-    """The cluster launch captured in a CUDA graph replays to the eager
-    output, also after the inputs change in place. Same kernel, same inputs,
-    a fixed merge order and no atomics: equal bit for bit."""
-    B, Hq, Hkv, D, Smax = 8, 15, 5, 64, 256
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_kernel_on_planted_keys(dev, case):
+    """On N(0, 1) inputs a long cache's output is below the absolute
+    tolerance, so a lost block would pass there. On ``probe.planted``
+    inputs (a key every head scores far above the rest at the first and
+    last position of each slice of the wrapper's split) every slice moves
+    the output by several tolerances: the kernel agrees with the plain
+    version under the same tolerance, and each ``probe.faults`` output (a
+    lost slice, a lost first or last tile, zeros) fails it."""
+    from repro_torch.kernels.decode_attention import probe
+    from repro_torch.kernels.decode_attention.decode_attention import splits
+    B, Hq, Hkv, D, Smax, lengths, window = case
+    p = splits(B, Hkv, D, Smax, window)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, ln = probe.planted(gen, B, Hq, Hkv, D, Smax, window, lengths,
+                                p, dev)
+    got = decode_attention_op(q, k, v, ln, window=window)
+    want = decode_attention_ref(q, k, v, ln, window=window)
+    _close(got, want, BF16_ULP, 3 * BF16_ULP)
+    for name, bad in probe.faults(q, k, v, ln, window, p):
+        with pytest.raises(AssertionError):
+            _close(bad, want, BF16_ULP, 3 * BF16_ULP)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,Smax", [
+    (8, 15, 5, 64, 256),         # one cluster of 8 blocks
+    (8, 10, 2, 64, 40960)])      # 17 blocks, a workspace and a second launch
+def test_decode_attention_replays_in_a_cuda_graph(dev, B, Hq, Hkv, D, Smax):
+    """The launch (the cluster's, or the split's and its merge's) captured
+    in a CUDA graph replays to the eager output, also after the inputs
+    change in place. Same kernel, same inputs, a fixed merge order and no
+    atomics: equal bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(5)
     q = _randn((B, 1, Hq, D), gen, dev)
     k = _randn((B, Smax, Hkv, D), gen, dev)
     v = _randn((B, Smax, Hkv, D), gen, dev)
     ln = torch.tensor([0, 1, 37, 128, 200, 255, 256, 64], dtype=torch.int32,
-                      device=dev)
+                      device=dev) * (Smax // 256)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -323,13 +365,63 @@ def test_decode_attention_replays_in_a_cuda_graph(dev):
             k.mul_(0.5)
             v.add_(1.0)
             ln.copy_(torch.tensor([256, 3, 0, 129, 17, 250, 1, 64],
-                                  dtype=torch.int32, device=dev))
+                                  dtype=torch.int32, device=dev)
+                     * (Smax // 256))
         graph.replay()
         torch.cuda.synchronize()
         eager = decode_attention_op(q, k, v, ln)
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
         _close(captured, decode_attention_ref(q, k, v, ln), BF16_ULP,
+               3 * BF16_ULP)
+
+
+def test_decode_attention_split_merge_is_bit_equal_run_to_run(dev):
+    """Past 8 blocks a (kv head, sample) the partials go through a
+    workspace and a second launch; both merge in a fixed order, so two
+    launches on the same inputs give the same bits. The wrapper counts
+    each call once in ``launches`` and its two CUDA launches in
+    ``cuda_launches``."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        MAX_CLUSTER, splits)
+    B, Hq, Hkv, D, Smax = 2, 25, 5, 64, 131072
+    assert splits(B, Hkv, D, Smax, 0) > MAX_CLUSTER
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = _randn((B, 1, Hq, D), gen, dev)
+    k = _randn((B, Smax, Hkv, D), gen, dev)
+    v = _randn((B, Smax, Hkv, D), gen, dev)
+    ln = torch.tensor([Smax, 77777], dtype=torch.int32, device=dev)
+    calls = decode_attention_op.launches
+    cuda = decode_attention_op.cuda_launches
+    first = decode_attention_op(q, k, v, ln)
+    second = decode_attention_op(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert decode_attention_op.launches == calls + 2
+    assert decode_attention_op.cuda_launches == cuda + 4
+    assert torch.equal(first, second)
+    _close(first, decode_attention_ref(q, k, v, ln), BF16_ULP, 3 * BF16_ULP)
+
+
+@pytest.mark.parametrize("D", [64, 20])
+def test_decode_attention_cache_off_sixteen_bytes(dev, D):
+    """K and V that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies (as D % 8 != 0 does) and agree with the plain version; 2 bytes
+    past one, no copy the kernel has fits, and the call raises."""
+    B, Hq, Hkv, Smax = 2, 10, 2, 300
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _randn((B, 1, Hq, D), gen, dev)
+    ln = torch.tensor([300, 41], dtype=torch.int32, device=dev)
+    n = B * Smax * Hkv * D
+    for off in (2, 1):
+        k = _randn((n + off,), gen, dev)[off:].view(B, Smax, Hkv, D)
+        v = _randn((n + off,), gen, dev)[off:].view(B, Smax, Hkv, D)
+        if off == 1:
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                decode_attention_op(q, k, v, ln)
+            continue
+        got = decode_attention_op(q, k, v, ln)
+        torch.cuda.synchronize()
+        _close(got, decode_attention_ref(q, k, v, ln), BF16_ULP,
                3 * BF16_ULP)
 
 
