@@ -225,6 +225,16 @@ def test_decode_attention_kernel(dev, case):
             assert not got[b].float().any()
 
 
+# (B, Sq, Sk, Hq, Hkv, D, kv_valid, window, q_offset, q_block, k_block):
+# the prompts long enough that N(0, 1) outputs fall below the tolerance,
+# and the last context-parallel rank's 512 rows of a 2048-token prompt
+LONG_PREFILL_CASES = [
+    (1, 8192, 8192, 15, 5, 64, None, 0, None, 512, 1024),
+    (1, 4096, 4096, 15, 5, 64, [4001], 0, None, 512, 1024),
+    (2, 6000, 6000, 15, 5, 64, [6000, 4000], 1000, None, 1000, 1000),
+    (2, 512, 2048, 15, 5, 64, None, 0, 1536, 512, 1024),
+]
+
 PREFILL_CASES = [
     # (B, Sq, Sk, Hq, Hkv, D, kv_valid, window, q_offset, q_block, k_block)
     (2, 16, 16, 4, 2, 32, [16, 11], 0, None, 512, 1024),
@@ -259,6 +269,14 @@ PREFILL_CASES = [
     # prompt (smollm's 15 / 5 heads of 64) at each of 4 ranks' offsets
     *[(2, 512, 2048, 15, 5, 64, None, 0, off, 512, 1024)
       for off in (0, 512, 1024, 1536)],
+    # the wgmma instance's long rows: an 8,192-token prompt, kv_valid
+    # ending inside a key tile, a binding window, Sq * G off the 128-row M
+    # tile, and D 16 / 32 / 128 at G 13 / 6 / 1
+    *LONG_PREFILL_CASES[:3],
+    (2, 300, 300, 15, 5, 64, [300, 211], 0, None, 512, 1024),
+    (2, 512, 512, 13, 1, 16, [512, 300], 0, None, 512, 1024),
+    (2, 600, 600, 6, 1, 32, [600, 431], 0, None, 600, 600),
+    (1, 700, 700, 4, 4, 128, None, 0, None, 700, 700),
 ]
 
 
@@ -294,6 +312,10 @@ NONCAUSAL_CASES = [
     (8, 1024, 1024, 16, 16, 64, None, 512, 1024),
     (8, 128, 1024, 16, 16, 64, None, 128, 1024),
     (8, 128, 512, 16, 16, 64, None, 128, 1024),
+    # the wgmma instance at D 16 / 32 / 128, G 13 / 6 / 1, kv_valid
+    (2, 600, 900, 13, 1, 16, [900, 500], 600, 900),
+    (2, 300, 700, 6, 1, 32, None, 300, 700),
+    (2, 256, 512, 4, 4, 128, [512, 333], 256, 512),
 ]
 
 
@@ -312,6 +334,78 @@ def test_flash_attention_kernel_noncausal(dev, case):
     torch.cuda.synchronize()
     assert flash_attention_op.launches == before + 1
     _close(got, flash_attention_ref(q, k, v, **kw), BF16_ULP, 3 * BF16_ULP)
+
+
+@pytest.mark.parametrize("case", LONG_PREFILL_CASES)
+def test_flash_attention_kernel_on_planted_keys(dev, case):
+    """On N(0, 1) inputs a long prompt's outputs are mostly below the
+    absolute tolerance, so a lost key tile would pass there. On
+    ``probe.planted`` inputs (a key every head scores far above the rest at
+    every 64th position) each loaded key tile moves its rows' outputs by
+    several tolerances: the kernel agrees with the plain version under the
+    same tolerance, and each ``probe.faults`` output (a lost first, middle,
+    last-before-diagonal or diagonal tile of a block's rows, zeros) fails
+    it."""
+    from repro_torch.kernels.flash_attention import probe
+    B, Sq, Sk, Hq, Hkv, D, kvv, window, q_off, qb, kb = case
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = probe.planted(gen, B, Sq, Sk, Hq, Hkv, D, dev)
+    kv = None if kvv is None else torch.tensor(kvv, dtype=torch.int32,
+                                               device=dev)
+    kw = dict(causal=True, window=window, q_offset=q_off, kv_valid=kv)
+    got = flash_attention_op(q, k, v, q_block=qb, k_block=kb, **kw)
+    want = flash_attention_ref(q, k, v, q_block=qb, k_block=kb, **kw)
+    _close(got, want, BF16_ULP, 3 * BF16_ULP)
+    faults = list(probe.faults(q, k, v, want, **kw))
+    assert len(faults) == 5
+    for name, bad in faults:
+        with pytest.raises(AssertionError):
+            _close(bad, want, BF16_ULP, 3 * BF16_ULP)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 4096, 4096, 15, 5, 64),      # the wgmma instance, 480 items
+    (8, 128, 128, 7, 1, 64)])        # the mma instance (a TP rank's rung)
+def test_flash_attention_is_bit_equal_run_to_run_and_in_a_graph(
+        dev, B, Sq, Sk, Hq, Hkv, D):
+    """Each output row is summed by one block in one order, with no split
+    over keys and no atomics: two launches on the same inputs, and the
+    launch captured in a CUDA graph and replayed (also after the inputs
+    change in place), give the same bits as an eager call. One count a
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _randn((B, Sq, Hq, D), gen, dev)
+    k = _randn((B, Sk, Hkv, D), gen, dev)
+    v = _randn((B, Sk, Hkv, D), gen, dev)
+    kv = torch.tensor([Sk - 37 * i for i in range(B)], dtype=torch.int32,
+                      device=dev)
+    calls = flash_attention_op.launches
+    first = flash_attention_op(q, k, v, kv_valid=kv)
+    second = flash_attention_op(q, k, v, kv_valid=kv)
+    torch.cuda.synchronize()
+    assert flash_attention_op.launches == calls + 2
+    assert torch.equal(first, second)
+    _close(first, flash_attention_ref(q, k, v, kv_valid=kv), BF16_ULP,
+           3 * BF16_ULP)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_op(q, k, v, kv_valid=kv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attention_op(q, k, v, kv_valid=kv)
+    for step in range(2):
+        if step:
+            k.mul_(0.5)
+            v.add_(1.0)
+            kv.copy_(torch.tensor([Sk - 100 * i - 1 for i in range(B)],
+                                  dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = flash_attention_op(q, k, v, kv_valid=kv)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
