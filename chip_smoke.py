@@ -17,8 +17,13 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    items, persistent blocks and sample groups; decode's blocks per (kv
    head, sample), grid, CUDA launches a call, ring stages) and, at the
    headline shapes, each attention kernel's time over the library call's;
-   print each ssd_scan case's geometry (state columns a block, grid, blocks
-   per SM, waves) and its time over its bound; time decode attention at
+   print each ssd_scan case's geometry (the instance; state columns a
+   block, grid, blocks per SM, waves; the chunked instance's launches and
+   workspace) and its time over its bound, and hold it at hymba's rung
+   2048 and exact prompt also on planted inputs (``_scan_planted``: slow
+   gates and a v column planted per chunk, so that every chunk shows in
+   the final state and the later chunks' y), where each of the scan
+   probe's emulated faults must fail the check; time decode attention at
    every split it takes at smollm's, hymba's ring, dbrx's, seamless's,
    decode_32k and long_500k shapes (``decode_sweep``); hold every decode
    case and sweep launch also on planted keys (``_planted_check``: a key
@@ -1321,6 +1326,90 @@ def flash_host_split(dev, reps=500):
                 python_ms=total - alloc - stream - launch)
 
 
+def _scan_check(case, y, st, yr, sr):
+    """ssd_scan's outputs against the plain version's: y to one bf16
+    rounding, the fp32 state to rtol 2e-5, each plus SCAN_ATOL of its
+    largest magnitude; raises on the first that fails, else returns both
+    max |difference|."""
+    import torch
+    errs = []
+    for name, got, want, rtol in (("y", y, yr, BF16_ULP),
+                                  ("state", st, sr, 2e-5)):
+        g, w = got.float(), want.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"ssd_scan {case}: non-finite {name}")
+        err = (g - w).abs()
+        atol = SCAN_ATOL * float(w.abs().max())
+        bad = err > atol + rtol * w.abs()
+        if bad.any():
+            raise AssertionError(
+                f"ssd_scan {case}: {int(bad.sum())} {name} elements "
+                f"beyond rtol={rtol} atol={atol}; max_abs_err="
+                f"{float(err.max())}")
+        errs.append(float(err.max()))
+    return errs
+
+
+def _scan_geometry(g):
+    if g.instance == "chunked":
+        return (f"chunked instance: {g.chunks} chunk(s) of {g.row_groups} "
+                f"16-row group(s), {g.launches} launches: {g.blocks} "
+                f"local-state blocks ({g.local_smem} B shared), "
+                f"{g.carry_blocks} scan blocks, y grid {g.grid} = "
+                f"{g.blocks} blocks of {g.threads} threads, "
+                f"{g.smem_bytes} B shared memory, {g.blocks_per_sm} "
+                f"block(s) per SM, {g.waves:.3f} waves on {SMS} SMs; "
+                f"workspace {g.workspace_floats * 4} B")
+    return (f"serial instance: {g.cols} state columns a block, grid "
+            f"{g.grid} = {g.blocks} blocks of {g.threads} threads, "
+            f"{g.smem_bytes} B shared memory, {g.blocks_per_sm} block(s) "
+            f"per SM, {g.waves:.3f} waves on {SMS} SMs")
+
+
+def _scan_planted(dev, B, S, H, lens, state):
+    """ssd_scan on ``probe.planted`` inputs at hymba's width (dk 16, dv 64,
+    chunks of 256: slow gates, q and k of a (b, h) sharing a direction, v
+    planted in column c over chunk c, so that every chunk's share of the
+    final state and of the later chunks' y is several tolerances), held
+    against the plain version; then every ``probe.faults`` output (a lost
+    local state of the first or last chunk, the carry into the last chunk
+    from two chunks back or without its exp(tot), a lost 16-row group's
+    state read, zeros) must fail that same check."""
+    import torch
+    from repro_torch.kernels.ssd_scan import probe
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.linear_core import pad_mask_gates
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    q, k, v, lf, li = probe.planted(gen, B, S, H, 16, 64, 256, dev)
+    if lens is not None:
+        lf, li = pad_mask_gates(lf, li, torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev))
+    s0 = (torch.randn((B, H, 16, 64), generator=gen, device=dev) if state
+          else None)
+    case = (f"B={B} S={S} H={H} dk=16 dv=64 chunk=256 lengths={lens} "
+            f"{'random' if state else 'zero'} state, planted")
+    yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=256, initial_state=s0)
+    errs = _scan_check(case, *ssd_scan_op(q, k, v, lf, li, chunk=256,
+                                          initial_state=s0), yr, sr)
+    caught = 0
+    for name, y, st in probe.faults(q, k, v, lf, li, chunk=256,
+                                    initial_state=s0):
+        try:
+            _scan_check(name, y, st, yr, sr)
+        except AssertionError:
+            caught += 1
+            continue
+        raise AssertionError(f"ssd_scan {case}: the fault '{name}' passes "
+                             f"the check")
+    if caught < 6:
+        raise AssertionError(f"ssd_scan {case}: {caught} faults")
+    return dict(case=case, max_abs_err=errs[0], state_max_abs_err=errs[1],
+                largest=float(yr.float().abs().max()),
+                state_largest=float(sr.abs().max()), faults_caught=caught)
+
+
 def scan_cases(dev):
     """ssd_scan against its plain version at the xlstm prefill's shapes:
     (a) B=8 S=256 H=4 dk=dv=384 with padded gates and a zero state, (b) the
@@ -1331,7 +1420,9 @@ def scan_cases(dev):
     padded B=8 rung-2048 prefill in 8 chunks from a nonzero state, (g) the
     exact 3072-token prompt, B=1, 12 chunks; at its tensor-parallel ranks'
     (phase 16h-i): (h) 7 heads (padded(4) over 4 ranks) and (i) 13 heads
-    (padded(2) over 2), a padded B=8 rung-128 prefill from a zero state."""
+    (padded(2) over 2), a padded B=8 rung-128 prefill from a zero state.
+    (f) and (g) also on planted inputs (``_scan_planted``), under which
+    every chunk shows in the outputs and each emulated fault must fail."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_op, ssd_scan_work
@@ -1386,34 +1477,22 @@ def scan_cases(dev):
         yr, sr = ssd_scan_ref(*args, chunk=chunk, initial_state=s0)
         case = (f"({tag}) B={B} S={S} H={H} dk={hd} dv={dv} chunk="
                 f"{min(chunk, S)} lengths={lens[S][:B]} {state} state")
-        errs = []
-        for name, got, want, rtol in (("y", y, yr, BF16_ULP),
-                                      ("state", st, sr, 2e-5)):
-            g, w = got.float(), want.float()
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"ssd_scan {case}: non-finite {name}")
-            err = (g - w).abs()
-            atol = SCAN_ATOL * float(w.abs().max())
-            bad = err > atol + rtol * w.abs()
-            if bad.any():
-                raise AssertionError(
-                    f"ssd_scan {case}: {int(bad.sum())} {name} elements "
-                    f"beyond rtol={rtol} atol={atol}; max_abs_err="
-                    f"{float(err.max())}")
-            errs.append(float(err.max()))
-        geo = geometry(B, H, hd, dv, min(chunk, S))
-        rows.append(dict(
+        errs = _scan_check(case, y, st, yr, sr)
+        geo = geometry(B, H, hd, dv, min(chunk, S), S // min(chunk, S))
+        row = dict(
             case=case, max_abs_err=errs[0], state_max_abs_err=errs[1],
-            geometry=f"{geo.cols} state columns a block, grid {geo.grid} = "
-                     f"{geo.blocks} blocks of {geo.threads} threads, "
-                     f"{geo.smem_bytes} B shared memory, {geo.blocks_per_sm} "
-                     f"block(s) per SM, {geo.waves:.3f} waves on {SMS} SMs",
+            geometry=_scan_geometry(geo),
             bound=kernel_bound(ssd_scan_work(B, S, H, hd, dv, chunk=chunk,
                                       state_in=True)),
             **timings(lambda: ssd_scan_op(*args, chunk=chunk,
                                           initial_state=s0),
                       lambda: ssd_scan_ref(*args, chunk=chunk,
-                                           initial_state=s0))))
+                                           initial_state=s0)))
+        if tag in ("f", "g"):
+            row["planted"] = _scan_planted(
+                dev, B, S, H, None if tag == "g" else lens[S][:B],
+                state == "random")
+        rows.append(row)
     return rows
 
 
@@ -2733,7 +2812,14 @@ def phases(dev):
                 f"bound_ms={r['bound'][0]} ({r['bound'][1]})")
             if "geometry" in r:
                 log(f"    launch: {r['geometry']}")
-            if "planted" in r:
+            if "planted" in r and kname == "ssd_scan":
+                pl = r["planted"]
+                log(f"    planted inputs: max_abs_err={pl['max_abs_err']} "
+                    f"(largest |y| {pl['largest']}) state_max_abs_err="
+                    f"{pl['state_max_abs_err']} (largest |state| "
+                    f"{pl['state_largest']}), {pl['faults_caught']} emulated "
+                    f"faults fail the check")
+            elif "planted" in r:
                 pl = r["planted"]
                 log(f"    planted keys: max_abs_err={pl['max_abs_err']} "
                     f"(largest |output| {pl['largest']}), "

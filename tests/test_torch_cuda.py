@@ -534,6 +534,7 @@ SCAN_CASES = [
     (2, 512, 4, 384, 385, 64, True),     # 8 chunks of 64, the mLSTM's dv
     (2, 512, 25, 16, 64, 256, True),     # hymba: ssm_state 16, head_dim 64
     (3, 24, 4, 8, 16, 8, True),          # reduced hymba, 3 chunks
+    (1, 1024, 2, 16, 64, 512, True),     # dk = 16 in chunks of 512: serial
 ]
 
 
@@ -576,6 +577,121 @@ def test_ssd_scan_replays_in_a_cuda_graph(dev):
     order of every sum and no atomics: equal bit for bit."""
     B, S, H, dk, dv, chunk = 2, 128, 2, 64, 65, 64
     gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, lf, li, s0 = _scan_inputs(B, S, H, dk, dv, True, gen, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ssd_scan_op(q, k, v, lf, li, chunk=chunk,
+                               initial_state=s0)
+    for step in range(2):
+        if step:
+            k.mul_(0.5)
+            v.add_(1.0)
+            s0.mul_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+        yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+        _close(captured[0], yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+        _close(captured[1], sr, 2e-5, 2e-5 * float(sr.abs().max()))
+
+
+# the chunked instance (dk <= 32): hymba's four rows (rung 2048 from a
+# carried state, the exact 3,072 prompt, the tensor-parallel ranks' rung 128
+# at 7 and 13 heads) and its ragged edges: dk 1, 16 and 20 (and 32); dv 1,
+# 63, 64 and 65; 1, 2 and 12 chunks; a chunk of 200 (a ragged row tile);
+# (B, S, H, dk, dv, chunk, padded lengths or None, initial state)
+CHUNKED_CASES = [
+    (8, 2048, 25, 16, 64, 256,
+     [2048, 1600, 1030, 2048, 600, 1280, 2040, 2035], True),
+    (1, 3072, 25, 16, 64, 256, None, False),
+    (8, 128, 7, 16, 64, 256, [32, 64, 128, 32, 64, 128, 32, 64], False),
+    (8, 128, 13, 16, 64, 256, [32, 64, 128, 128, 32, 64, 128, 128], False),
+    (2, 512, 3, 1, 64, 256, [512, 300], True),
+    (2, 256, 3, 16, 1, 256, None, True),
+    (1, 3072, 2, 20, 63, 256, None, True),
+    (2, 512, 3, 20, 65, 256, [512, 77], True),
+    (3, 600, 2, 32, 64, 200, [600, 599, 1], True),
+    (2, 64, 2, 16, 63, 64, None, False),
+    (1, 8, 2, 16, 64, 256, None, True),
+]
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_ssd_scan_chunked_instance(dev, case):
+    """The chunked instance against the plain version under hymba's gates
+    (softplus dt), pad-masked where lengths are given, with the tolerances
+    of ``test_ssd_scan_kernel``."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNKED, geometry
+    from repro_torch.models.linear_core import pad_mask_gates
+    B, S, H, dk, dv, chunk, lens, state = case
+    W = min(chunk, S)
+    assert geometry(B, H, dk, dv, W, S // W).instance == CHUNKED
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k = (_randn((B, S, H, dk), gen, dev) for _ in range(2))
+    v = _randn((B, S, H, dv), gen, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=dev))
+    lf, li = -dt, torch.log(dt)
+    if lens is not None:
+        lf, li = pad_mask_gates(lf, li, torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev))
+    s0 = (torch.randn((B, H, dk, dv), generator=gen, device=dev) if state
+          else None)
+    before = ssd_scan_op.launches
+    y, st = ssd_scan_op(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan_op.launches == before + 1
+    yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=chunk, initial_state=s0)
+    _close(y, yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+    _close(st, sr, 2e-5, 2e-5 * float(sr.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,H,lens,state", [
+    (8, 2048, 25, [2048, 1600, 1030, 2048, 600, 1280, 2040, 2035], True),
+    (1, 3072, 25, None, False),
+    (2, 1024, 3, [1024, 700], True)])
+def test_ssd_scan_planted_probe(dev, B, S, H, lens, state):
+    """On ``probe.planted`` inputs (slow gates, every chunk owning a column
+    of the final state and of the later chunks' y) the kernel passes the
+    check and each of ``probe.faults``'s outputs fails it."""
+    from repro_torch.kernels.ssd_scan import probe
+    from repro_torch.models.linear_core import pad_mask_gates
+    gen = torch.Generator(device=dev).manual_seed(37)
+    q, k, v, lf, li = probe.planted(gen, B, S, H, 16, 64, 256, dev)
+    if lens is not None:
+        lf, li = pad_mask_gates(lf, li, torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev))
+    s0 = (torch.randn((B, H, 16, 64), generator=gen, device=dev) if state
+          else None)
+    y, st = ssd_scan_op(q, k, v, lf, li, chunk=256, initial_state=s0)
+    yr, sr = ssd_scan_ref(q, k, v, lf, li, chunk=256, initial_state=s0)
+    _close(y, yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+    _close(st, sr, 2e-5, 2e-5 * float(sr.abs().max()))
+    caught = 0
+    for name, fy, fs in probe.faults(q, k, v, lf, li, chunk=256,
+                                     initial_state=s0):
+        with pytest.raises(AssertionError):
+            _close(fy, yr, BF16_ULP, 2e-5 * float(yr.float().abs().max()))
+            _close(fs, sr, 2e-5, 2e-5 * float(sr.abs().max()))
+        caught += 1
+    assert caught == 6
+
+
+@pytest.mark.parametrize("S", [256, 1024])
+def test_ssd_scan_chunked_replays_in_a_cuda_graph(dev, S):
+    """The chunked instance (its workspace allocated inside the capture,
+    two or three launches) captured in a CUDA graph replays to the eager
+    output bit for bit, also after the inputs change in place."""
+    B, H, dk, dv, chunk = 2, 3, 16, 64, 256
+    gen = torch.Generator(device=dev).manual_seed(8)
     q, k, v, lf, li, s0 = _scan_inputs(B, S, H, dk, dv, True, gen, dev)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
