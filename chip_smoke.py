@@ -2634,7 +2634,8 @@ def lmcascade_on_card(dev):
     # "card": the card once more with both tiers' steps eager, so that its
     # logits can be read (a graph's cannot)
     for tag, d in (("cpu", "cpu"), ("cuda", dev), ("card", dev)):
-        tr = Tracer(sample_rate=1.0, seed=sc.seed)
+        # no step spans: their decode modes differ between the devices
+        tr = Tracer(sample_rate=1.0, seed=sc.seed, engine=False)
         sa = FleetSampler(interval=0.05, monitor=BurnRateMonitor())
         au = AuditLog()
         casc, clock, params, pending = build_lmcascade(

@@ -22,6 +22,18 @@ Design rules, mirroring ``core.metrics``:
 * **Bounded memory** — the span log is a ring buffer: the newest
   ``capacity`` completed spans are retained, the overwritten count is
   reported as ``dropped`` (never silently).
+* **Step spans** — an engine's own steps (``LMServer``'s admissions and
+  decode steps) are spans outside any request: trace id 0, as
+  ``global_event``'s, opened by :meth:`Tracer.start_step` with children
+  through ``start_span``. They ignore ``sample_rate``, count as no trace
+  and enter no attribution, and keep a ring of their own of the same
+  ``capacity``, so they never evict a request's span (``summary()``
+  counts both rings; ``spans()`` lists the requests' ring, then theirs).
+  A tracer built with ``engine=False`` (the reference's has no such
+  spans) is asked for none. While a
+  ``torch.profiler`` records, each step span is also a
+  ``record_function`` range of its name, nested as the span is, so the
+  engine's phases sit on the profiler's timeline beside the device ops.
 
 The serialized form is the ``repro.trace/v1`` schema (``Tracer.to_json``),
 convertible to Chrome ``trace_event`` JSON by ``python -m repro.obs.export``
@@ -69,7 +81,7 @@ class Span:
     where no budget is carved out."""
 
     __slots__ = ("span_id", "trace_id", "parent_id", "name", "component",
-                 "start", "end", "kind", "budget_s", "attrs")
+                 "start", "end", "kind", "budget_s", "attrs", "range")
 
     def __init__(self, span_id: int, trace_id: int, parent_id: Optional[int],
                  name: str, component: str, start: float,
@@ -86,6 +98,8 @@ class Span:
         self.kind = kind
         self.budget_s = budget_s
         self.attrs = attrs
+        # a step span's open profiler range, if one is recording
+        self.range = None
 
     @property
     def duration(self) -> float:
@@ -142,19 +156,33 @@ class SpanLog:
         return self._buf[h:] + self._buf[:h]        # type: ignore[return-value]
 
 
+def _open_range(span: Span) -> None:
+    """Open ``span``'s profiler range where a profiler records."""
+    import torch
+    if torch._C._autograd._profiler_enabled():
+        span.range = torch.profiler.record_function(span.name)
+        span.range.__enter__()
+
+
 class Tracer:
     """Per-query span recording + exact latency attribution.
 
     All methods tolerate ``parent=None`` (an unsampled trace) by doing
     nothing and propagating ``None``, so instrumentation sites only guard
-    on ``tracer is not None`` once, at trace start."""
+    on ``tracer is not None`` once, at trace start.
+
+    ``engine``: whether an engine records its step spans here
+    (:meth:`start_step`); off where a span log is held to the
+    reference's."""
 
     def __init__(self, *, sample_rate: float = 1.0, seed: int = 0,
-                 capacity: int = 1 << 16):
+                 capacity: int = 1 << 16, engine: bool = True):
         assert 0.0 <= sample_rate <= 1.0
         self.sample_rate = sample_rate
         self.seed = seed
+        self.engine = engine
         self.log = SpanLog(capacity)
+        self.step_log = SpanLog(capacity)
         self._sids = itertools.count(1)
         self._tids = itertools.count(1)
         self.traces = 0                 # traces started (incl. unsampled)
@@ -184,9 +212,22 @@ class Tracer:
                    attrs: Optional[Dict[str, Any]] = None) -> Optional[Span]:
         if parent is None:
             return None
-        return Span(next(self._sids), parent.trace_id, parent.span_id,
-                    name, component, t, kind="span", budget_s=budget_s,
-                    attrs=dict(attrs) if attrs else None)
+        s = Span(next(self._sids), parent.trace_id, parent.span_id,
+                 name, component, t, kind="span", budget_s=budget_s,
+                 attrs=dict(attrs) if attrs else None)
+        if parent.trace_id == 0:
+            _open_range(s)
+        return s
+
+    def start_step(self, name: str, component: str, t: float,
+                   attrs: Optional[Dict[str, Any]] = None) -> Span:
+        """Open a step span: an engine's own step (an admission, a decode
+        step), outside any trace — trace id 0, never sampled out. Its
+        children come from ``start_span``; ``end_span`` closes each."""
+        s = Span(next(self._sids), 0, None, name, component, t, kind="span",
+                 attrs=dict(attrs) if attrs else None)
+        _open_range(s)
+        return s
 
     def end_span(self, span: Optional[Span], t: float,
                  **attrs: Any) -> None:
@@ -196,7 +237,13 @@ class Tracer:
         span.end = float(t)
         if attrs:
             span.attrs = {**(span.attrs or {}), **attrs}
-        self.log.append(span)
+        if span.trace_id == 0:          # a step span or its child
+            if span.range is not None:
+                span.range.__exit__(None, None, None)
+                span.range = None
+            self.step_log.append(span)
+        else:
+            self.log.append(span)
 
     def add_span(self, parent: Optional[Span], name: str, component: str,
                  start: float, end: float, *,
@@ -205,9 +252,7 @@ class Tracer:
         """Record a fully-known (already completed) child span."""
         s = self.start_span(parent, name, component, start,
                             budget_s=budget_s, attrs=attrs)
-        if s is not None:
-            s.end = float(end)
-            self.log.append(s)
+        self.end_span(s, end)
         return s
 
     def event(self, parent: Optional[Span], name: str, component: str,
@@ -256,7 +301,7 @@ class Tracer:
 
     # -- reading --------------------------------------------------------
     def spans(self) -> List[Span]:
-        return self.log.spans()
+        return self.log.spans() + self.step_log.spans()
 
     def attribution_report(self) -> Dict[str, Any]:
         """Run-level latency attribution: for the attributed (completed,
@@ -282,9 +327,9 @@ class Tracer:
             "seed": self.seed,
             "traces": self.traces,
             "sampled_traces": self.sampled,
-            "spans": len(self.log),
-            "spans_total": self.log.total,
-            "dropped": self.log.dropped,
+            "spans": len(self.log) + len(self.step_log),
+            "spans_total": self.log.total + self.step_log.total,
+            "dropped": self.log.dropped + self.step_log.dropped,
             "capacity": self.log.capacity,
         }
 

@@ -346,6 +346,10 @@ class LMServer:
         # audit, SLO-aware admission control, completion callback, and
         # per-request fault injection
         self.tracer = tracer
+        # the tracer again where it takes the engine's step spans (the
+        # port's, built with ``engine=True``), else None: each step
+        # boundary tests only this
+        self._steps = tracer if getattr(tracer, "engine", False) else None
         self.audit = audit
         self._ts_prev: Dict[str, float] = {}
         self.admission_control = admission_control
@@ -398,12 +402,15 @@ class LMServer:
                                           layout=self.layout)
         # the fused step's CUDA graph (card only): the params tree it reads
         # (or that the eager step before its capture ran with), the graph,
-        # its packed output, and its kernel launches per replay
+        # its packed output, and its kernel launches per replay; how the
+        # last step ran ("eager", "capture" or "replay", its step span's
+        # ``mode``)
         self._graph_params: Any = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_out: Optional[torch.Tensor] = None
         self._graph_launches: Dict[Callable, int] = {}
         self.graph_replays = 0
+        self._decode_mode = "eager"
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -522,8 +529,10 @@ class LMServer:
         free = [s for s in range(self.slots) if s not in self._active]
         if not free or not self._queue:
             return
-        n = min(len(free), len(self._queue), self.admission.max_batch_size)
-        batch, padded = self._take_batch(n)
+        queued, budget = len(self._queue), self.admission.max_batch_size
+        want = min(len(free), queued, budget)
+        t_take = self.clock() if self._steps is not None else 0.0
+        batch, padded = self._take_batch(want)
         n = len(batch)
         if n == 0:
             return
@@ -544,8 +553,31 @@ class LMServer:
         if self.layout.data_axes:       # the requests going to this row
             rows = [i for i in range(n) if self.layout.local(free[i])]
             more = (rows,)
+        step = None
+        if self._steps is not None:
+            # what capped n: the take stopping at a prompt of another
+            # length, else every bound n reached ("slots+budget" where the
+            # free slots and AIMD's budget tie)
+            limit = "length" if n < want else "+".join(
+                k for k, v in (("slots", len(free)), ("budget", budget),
+                               ("queue", queued)) if v == n)
+            step = self._steps.start_step(
+                "engine.admit", "engine", t_take, attrs={
+                    "prompts": n, "rows": nb, "rung": int(plen),
+                    "padded": padded,
+                    "tokens_valid": int(sum(len(r.prompt) for r in batch)),
+                    "tokens_padded": nb * int(plen), "free": len(free),
+                    "queued": queued, "budget": budget, "limit": limit})
         t0 = self.clock()
+        if step is not None:
+            phase = self._steps.start_span(step, "engine.prefill.issue",
+                                           "engine", t0)
         logits, pcache = self._prefill(params, toks, vlens, padded, *more)
+        if step is not None:
+            t = self.clock()
+            self._steps.end_span(phase, t)
+            phase = self._steps.start_span(step, "engine.prefill.wait",
+                                           "engine", t)
         if self.device.type == "cuda":
             # the reference's block_until_ready(logits): the service time
             # ends with the prefill, before the first token is sampled
@@ -555,6 +587,9 @@ class LMServer:
             self.rung_dispatches.get(int(plen), 0) + 1)
         # the service model is charged the *executed* shape (padded bucket)
         dt = self._agreed(self._service_time("prefill", nb, plen, t0))
+        if step is not None:
+            # issue and wait partition the requests' prefill span
+            self._steps.end_span(phase, t0 + dt)
         self.admission.record(n, dt)
         self.metrics.inc(M.QUERIES_SUBMITTED, n, model=self.model_id)
         self._observe_batch(n, dt)
@@ -570,7 +605,14 @@ class LMServer:
                         r.trace, "prefill", "lm.prefill", t0, t0 + dt,
                         budget_s=self.slo * self.prefill_slo_frac,
                         attrs={"batch": n, "padded_len": int(plen)})
+        if step is not None:
+            phase = self._steps.start_span(step, "engine.place", "engine",
+                                           self.clock())
         self._place(batch, logits, pcache, free, vlens, dt, rows)
+        if step is not None:
+            t = self.clock()
+            self._steps.end_span(phase, t)
+            self._steps.end_span(step, t)
 
     def _agreed(self, dt: float) -> float:
         """The ranks' largest ``dt`` on a mesh (their admission decisions
@@ -644,10 +686,17 @@ class LMServer:
     def _decode_once(self, params) -> None:
         if not self._active:
             return
+        step = None
+        if self._steps is not None:
+            step = self._steps.start_step(
+                "engine.decode", "engine", self.clock(),
+                attrs={"active": len(self._active)})
         if self.fused:
-            self._decode_once_fused(params)
+            self._decode_once_fused(params, step)
         else:
-            self._decode_once_reference(params)
+            self._decode_once_reference(params, step)
+        if step is not None:
+            self._steps.end_span(step, self.clock(), mode=self._decode_mode)
 
     def _slot_state(self):
         """The fused step's arguments after ``params``: the slot state."""
@@ -664,6 +713,7 @@ class LMServer:
             # the CPU has no graphs; gloo's collectives run on the host
             return self._decode_fused(params, *self._slot_state())
         if params is not self._graph_params:
+            self._decode_mode = "eager"
             self._graph = self._graph_out = None
             self._graph_params = params
             main = torch.cuda.current_stream(self.device)
@@ -673,7 +723,9 @@ class LMServer:
                 packed = self._decode_fused(params, *self._slot_state())
             main.wait_stream(side)
             return packed
+        self._decode_mode = "replay"
         if self._graph is None:
+            self._decode_mode = "capture"
             self._capture(params)
         self._graph.replay()
         credit_launches(self._graph_launches)
@@ -697,10 +749,21 @@ class LMServer:
         self._graph, self._graph_out = graph, out
         self._graph_launches = per_replay
 
-    def _decode_once_fused(self, params) -> None:
+    def _decode_once_fused(self, params, step=None) -> None:
+        """One fused step; ``step``, its step span or None."""
         t0 = self.clock()
+        if step is not None:
+            phase = self._steps.start_span(step, "engine.decode.launch",
+                                           "engine", t0)
         packed = self._decode_device(params)
+        if step is not None:
+            t = self.clock()
+            self._steps.end_span(phase, t)
+            phase = self._steps.start_span(step, "engine.decode.wait",
+                                           "engine", t)
         out = packed.cpu().numpy()          # the ONE host transfer per step
+        if step is not None:
+            self._steps.end_span(phase, self.clock())
         self.decode_host_syncs += 1
         toks, done = out[:self.slots], out[self.slots:].astype(bool)
         n_active = len(self._active)
@@ -713,14 +776,25 @@ class LMServer:
             if done[s]:
                 self._finish(s, r)
 
-    def _decode_once_reference(self, params) -> None:
+    def _decode_once_reference(self, params, step=None) -> None:
         """The reference's per-slot loop, kept as the parity and benchmark
         baseline: the sampled tokens to the host, then per active slot a
         token write and a length read (the O(slots) host round trips the
-        fused step removes)."""
+        fused step removes). ``step``: :meth:`_decode_once_fused`'s."""
         t0 = self.clock()
+        if step is not None:
+            phase = self._steps.start_span(step, "engine.decode.launch",
+                                           "engine", t0)
         toks = self._decode(params, self.cache, self.cur_tokens,
-                            self.lengths).cpu().numpy()
+                            self.lengths)
+        if step is not None:
+            t = self.clock()
+            self._steps.end_span(phase, t)
+            phase = self._steps.start_span(step, "engine.decode.wait",
+                                           "engine", t)
+        toks = toks.cpu().numpy()
+        if step is not None:
+            self._steps.end_span(phase, self.clock())
         self.decode_host_syncs += 1
         n_active = len(self._active)
         dt = self._service_time("decode", self.slots, 1, t0)

@@ -85,7 +85,9 @@ def main(argv=None) -> int:
         if not 0.0 <= args.trace_sample_rate <= 1.0:
             parser.error("--trace-sample-rate must be in [0, 1]")
         from repro_torch.obs import Tracer
-        tracer = Tracer(sample_rate=args.trace_sample_rate, seed=sc.seed)
+        # the reference's document, byte for byte: no engine step spans
+        tracer = Tracer(sample_rate=args.trace_sample_rate, seed=sc.seed,
+                        engine=False)
     sampler, audit = build_fleet(args, parser)
     text = ScenarioRunner(sc, tracer=tracer, sampler=sampler, audit=audit,
                           device=args.device).run_json(args.stack)

@@ -24,6 +24,7 @@ Parity:
   degradation path) and the draft tier shedding."""
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -64,6 +65,9 @@ from repro_torch.workloads.scenario import D_FEAT, SCENARIOS
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 LM_SC = pipeline_scenario()
+# the port's tracer without the engine's step spans, which the reference's
+# span log has no counterpart of
+_PortTracer = functools.partial(Tracer, engine=False)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +220,7 @@ def test_lmcascade_matches_reference_on_bridged_weights(reference):
     kept, want = reference
     jcasc = kept["cascade"]
     with pytest.MonkeyPatch.context() as mp:
-        fleet = _fleet(Tracer, FleetSampler, BurnRateMonitor, AuditLog)
+        fleet = _fleet(_PortTracer, FleetSampler, BurnRateMonitor, AuditLog)
         casc, clock, _, pending = build_lmcascade(
             LM_SC, threshold=0.9, tracer=fleet["tracer"],
             audit=fleet["audit"], device=CPU)

@@ -12,6 +12,7 @@ byte except ``engine.attention_backend`` (the implementation that ran:
 audit documents. On the bridged weights the token streams are the
 reference's up to a bf16 near-tie (ROADMAP.md §C)."""
 
+import functools
 import json
 
 import jax
@@ -33,6 +34,9 @@ from repro_torch.serving import engine as torch_engine
 from repro_torch.workloads.scenario import ScenarioRunner
 
 SC = SCENARIOS["poisson"]
+# the port's tracer without the engine's step spans, which the reference's
+# span log has no counterpart of
+_PortTracer = functools.partial(Tracer, engine=False)
 
 
 def _fleet(tracer, sampler, monitor, audit):
@@ -111,7 +115,7 @@ def test_lmserver_scenario_matches_reference(reference):
     """The port's own weights: the calibrated report and the fleet
     documents equal the reference's (they do not depend on the tokens:
     fixed lengths, no EOS)."""
-    fleet = _fleet(Tracer, FleetSampler, BurnRateMonitor, AuditLog)
+    fleet = _fleet(_PortTracer, FleetSampler, BurnRateMonitor, AuditLog)
     rep = ScenarioRunner(SC, device="cpu", **fleet).run("lmserver")
     _assert_documents_match(reference[1], _documents(rep, fleet))
     assert rep["queries"]["completed"] == SC.lm_requests
@@ -120,7 +124,7 @@ def test_lmserver_scenario_matches_reference(reference):
 def test_lmserver_scenario_streams_on_bridged_weights(reference):
     jrunner, want = reference
     with pytest.MonkeyPatch.context() as mp:
-        fleet = _fleet(Tracer, FleetSampler, BurnRateMonitor, AuditLog)
+        fleet = _fleet(_PortTracer, FleetSampler, BurnRateMonitor, AuditLog)
         runner = _Bridged(mp, jrunner.params, **fleet)
         rep = runner.run("lmserver")
     _assert_documents_match(want, _documents(rep, fleet))
