@@ -65,8 +65,9 @@ Phases, each of which fails the run (nonzero exit) if it fails:
    within 1e-6 (ms per batch); the poisson scenario's lmserver stack
    through ``ScenarioRunner`` on the card (counts set to 0 just before, each
    rising; the decode step replayed from its CUDA graph), its report equal
-   to the CPU run's but ``engine.attention_backend`` and
-   ``engine.decode.graph``; then full-width smollm-360m through the same
+   to the CPU run's but ``engine.attention_backend``,
+   ``engine.decode.graph`` and ``engine.prefill.graph`` (true where a
+   ladder prefill replayed from its graph); then full-width smollm-360m through the same
    runner (``build_lmserver(cfg=)``), the fields of its report that differ
    from the reduced run's listed;
 2c. model composition and the control plane: the ``cascade`` and
@@ -2256,10 +2257,10 @@ def scenario_lmserver(dev):
     """The poisson scenario's lmserver stack through ``ScenarioRunner``: the
     reduced model on the card (its decode step replayed from the CUDA graph;
     each kernel's count set to 0 just before and rising) and on the CPU,
-    reports equal but ``engine.attention_backend`` and
-    ``engine.decode.graph``; then full-width smollm-360m through the same
-    runner (``build_lmserver(cfg=)``), its fields that differ from the
-    reduced run's report listed."""
+    reports equal but ``engine.attention_backend``, ``engine.decode.graph``
+    and ``engine.prefill.graph`` (:func:`_engine_diff`); then full-width
+    smollm-360m through the same runner (``build_lmserver(cfg=)``), its
+    fields that differ from the reduced run's report listed."""
     from repro_torch.configs.registry import ARCHITECTURES
     from repro_torch.workloads.scenario import SCENARIOS, ScenarioRunner
 
@@ -2293,14 +2294,16 @@ def scenario_lmserver(dev):
                                  f"request completed in vocabulary")
         runs[tag] = dict(report=rep, wall_s=wall, launches=launches,
                          decode_steps=srv.decode_steps,
-                         graph_replays=srv.graph_replays)
+                         graph_replays=srv.graph_replays,
+                         prefill_dispatches=srv.prefill_dispatches,
+                         prefill_graph_replays=srv.prefill_graph_replays)
     cpu_runner = ScenarioRunner(sc, device="cpu")
     t0 = time.perf_counter()
     cpu = cpu_runner.drive_lmserver(*cpu_runner.build_lmserver())
     cpu_wall = time.perf_counter() - t0
     card = json.loads(json.dumps(runs["reduced"]["report"]))
-    differ = _diff_fields(card, cpu)
-    if sorted(differ) != ["engine.attention_backend", "engine.decode.graph"]:
+    differ = _engine_diff(card, cpu)
+    if differ != ["engine.attention_backend", "engine.decode.graph"]:
         raise AssertionError(f"scenario lmserver: the card's report differs "
                              f"from the CPU's at {differ}")
     runs["cpu_wall_s"] = cpu_wall
@@ -2317,6 +2320,25 @@ CRASH = "crash:m0:0@0.25:0.9"
 ENGINE_FIELDS = ("engine.attention_backend", "engine.decode.graph")
 
 
+def _engine_diff(card, cpu):
+    """The sorted paths at which the card's report differs from the CPU's
+    but each ``engine.prefill.graph``, which differs only where the card
+    replayed a ladder prefill from its graph (true there; the CPU has
+    none), as it must."""
+    differ = []
+    for f in sorted(_diff_fields(card, cpu)):
+        if not f.endswith("engine.prefill.graph"):
+            differ.append(f)
+            continue
+        sec_card, sec_cpu = card, cpu
+        for key in f.split("."):
+            sec_card, sec_cpu = sec_card[key], sec_cpu[key]
+        if (sec_card, sec_cpu) != (True, False):
+            raise AssertionError(f"{f}: {sec_card} on the card, {sec_cpu} "
+                                 f"on the CPU")
+    return differ
+
+
 
 def _expect_engine_diff(label, card, cpu, prefixes=("",)):
     """The card's report equals the CPU's but each tier's engine fields;
@@ -2325,8 +2347,8 @@ def _expect_engine_diff(label, card, cpu, prefixes=("",)):
     card = json.loads(json.dumps(card))
     cpu = json.loads(json.dumps(cpu))
     want = sorted(p + f for p in prefixes for f in ENGINE_FIELDS)
-    differ = _diff_fields(card, cpu)
-    if sorted(differ) != want:
+    differ = _engine_diff(card, cpu)
+    if differ != want:
         raise AssertionError(f"{label}: the card's report differs from the "
                              f"CPU's at {differ}, not only at {want}")
     for p in prefixes:
@@ -4242,7 +4264,8 @@ def _sim_server(model, params, prompts, *, eager=False, rows=None,
                 setup=None):
     """A greedy ``LMServer`` (8 slots, max_len 512) over ``prompts`` in
     calibrated simulation, so that admission decides the same on every run
-    and every rank: -> (streams, engine report, server). ``eager``: the
+    and every rank: -> (streams, engine report without ``prefill.graph``,
+    server). ``eager``: the
     fused step runs eagerly; ``rows``: filled with each request's sampled
     logits rows (an eager run); ``setup(server)`` runs before it serves."""
     from repro_torch.core.metrics import VirtualClock
@@ -4267,8 +4290,11 @@ def _sim_server(model, params, prompts, *, eager=False, rows=None,
         srv.run(params)
     finally:
         E.sample = real
-    return ({r: srv.completed[r].tokens for r in rids}, srv.engine_report(),
-            srv)
+    report = srv.engine_report()
+    # one device replays its ladder prefills from graphs, a mesh's ranks
+    # prefill eagerly: the reports the two compare leave the flag out
+    report["prefill"].pop("graph")
+    return {r: srv.completed[r].tokens for r in rids}, report, srv
 
 
 def _nccl_one_rank(cfg, params, prompts):

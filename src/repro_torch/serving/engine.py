@@ -30,6 +30,15 @@ eager step would. A capture or replay error raises: the card never runs
 the step eagerly in its place. The CPU has no graphs and runs the step
 eagerly, as the reference's jit runs on any backend.
 
+A prefill on the length ladder is graphed the same way on one card, once
+per ``(rows, rung)`` shape: the ladders bound those shapes (batch rungs ×
+length rungs), so each capture is paid once. Its first dispatch runs
+eagerly on a side stream, its second captures, later ones copy the
+prompts into the graph's static inputs and replay. Exact shapes (prompts
+past the ladder's cap, models that pad no prompt), the reference loop and
+meshes prefill eagerly: their shapes are unbounded, or their collectives
+run on the host.
+
 ``fused=False`` is the reference's per-slot loop, kept as the parity and
 benchmark baseline: per-request cache scatter at admission, and per step
 the sampled tokens plus one device read per active slot on the host. It
@@ -72,7 +81,7 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -299,6 +308,55 @@ def _pad_rows(cache: torch.Tensor, rows: torch.Tensor) -> Optional[int]:
     return None
 
 
+def _on_side_stream(device, fn: Callable):
+    """``fn()`` on a fresh side stream ordered after the current one, which
+    waits for it: the eager run before a capture, as PyTorch's capture
+    rules ask (it warms cuBLAS and the allocator)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    return out
+
+
+def _capture(fn: Callable, *, generator: Optional[torch.Generator] = None,
+             pool=None):
+    """Capture ``fn()`` as a CUDA graph -> ``(graph, fn's outputs, kernel
+    launches per replay)``. Capture runs nothing: the wrappers' counts of
+    the capture are taken back here, for the caller to credit per replay.
+    ``generator`` is registered with the graph, so each replay advances
+    it; ``pool``, a memory pool the graph shares."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = launch_counts()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        per_replay = {w: n - before[w] for w, n in launch_counts().items()
+                      if n != before[w]}
+        credit_launches({w: -n for w, n in per_replay.items()})
+    return graph, out, per_replay
+
+
+class _PrefillGraph(NamedTuple):
+    """One ``(rows, rung)`` shape's captured prefill: the graph, its static
+    inputs (``tokens`` [rows, rung] and ``lengths`` [rows] int32, written
+    before each replay), its outputs ``(logits, cache)`` and its kernel
+    launches per replay. The outputs live in the pool every prefill graph
+    shares, so the next prefill replay of any shape overwrites them:
+    admission consumes them (``_place``: the first tokens' sample and
+    ``batched_scatter``) before it dispatches again."""
+
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    out: Tuple[torch.Tensor, Any]
+    launches: Dict[Callable, int]
+
+
 class LMServer:
     """Continuous-batching server for one Model, on the model's device.
     Admission, placement and decode steps run under ``torch.no_grad()``."""
@@ -411,6 +469,19 @@ class LMServer:
         self._graph_launches: Dict[Callable, int] = {}
         self.graph_replays = 0
         self._decode_mode = "eager"
+        # the ladder prefill's CUDA graphs (card, one device, fused): per
+        # (rows, rung) None after the shape's first, eager, dispatch, then
+        # its graph; the params tree they read and the memory pool they
+        # share (they run one at a time on one stream); how the last
+        # dispatch ran (its ``engine.admit`` span's ``mode``); the
+        # dispatches that captured and that replayed
+        self._prefill_graphs: Dict[Tuple[int, int],
+                                   Optional[_PrefillGraph]] = {}
+        self._prefill_graph_params: Any = None
+        self._prefill_pool = None
+        self._prefill_mode = "eager"
+        self.prefill_graph_captures = 0
+        self.prefill_graph_replays = 0
 
     # ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -495,6 +566,7 @@ class LMServer:
         is its), or, where the data rows prefill together
         (``SlotLayout.joint``), the whole dispatched shape with padding in
         the other rows' places, the cache's rows ``rows`` its requests'."""
+        self._prefill_mode = "eager"
         shape = (toks.shape[0], toks.shape[1], padded)
         if shape not in self._prefill_shapes:
             self._prefill_shapes.add(shape)
@@ -514,6 +586,9 @@ class LMServer:
             if not rows:
                 return None, None
             toks, vlens = toks[rows], vlens[rows]
+        if (padded and self.fused and self.mesh is None
+                and self.device.type == "cuda"):
+            return self._prefill_graphed(params, toks, vlens)
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         if padded:
             batch["lengths"] = torch.from_numpy(vlens).to(self.device)
@@ -523,6 +598,46 @@ class LMServer:
             logits = logits.index_select(0, torch.tensor(
                 rows, dtype=torch.long, device=logits.device))
         return logits, cache
+
+    def _prefill_graphed(self, params, toks: np.ndarray,
+                         vlens: np.ndarray):
+        """A ladder dispatch on one card -> ``(logits, cache)``: the first
+        of its ``(rows, rung)`` shape with a params tree eager on a side
+        stream, the second captured as a CUDA graph, later ones replayed
+        with the prompts copied into the graph's static inputs (checked by
+        the params object's identity; another tree starts every shape
+        over). A capture error raises: no dispatch runs eagerly in its
+        place."""
+        if params is not self._prefill_graph_params:
+            self._prefill_graphs = {}
+            self._prefill_graph_params = params
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        key = toks.shape
+        g = self._prefill_graphs.get(key)
+        if g is None:
+            inputs = {"tokens": torch.from_numpy(toks).to(self.device),
+                      "lengths": torch.from_numpy(vlens).to(self.device)}
+
+            def run():
+                return self.model.prefill(params, inputs,
+                                          max_len=self.max_len)
+
+            if key not in self._prefill_graphs:
+                self._prefill_graphs[key] = None
+                return _on_side_stream(self.device, run)
+            self._prefill_mode = "capture"
+            graph, out, launches = _capture(run, pool=self._prefill_pool)
+            g = self._prefill_graphs[key] = _PrefillGraph(
+                graph, inputs, out, launches)
+            self.prefill_graph_captures += 1
+        else:
+            self._prefill_mode = "replay"
+            g.inputs["tokens"].copy_(torch.from_numpy(toks))
+            g.inputs["lengths"].copy_(torch.from_numpy(vlens))
+            self.prefill_graph_replays += 1
+        g.graph.replay()
+        credit_launches(g.launches)
+        return g.out
 
     @torch.no_grad()
     def _admit(self, params) -> None:
@@ -612,7 +727,7 @@ class LMServer:
         if step is not None:
             t = self.clock()
             self._steps.end_span(phase, t)
-            self._steps.end_span(step, t)
+            self._steps.end_span(step, t, mode=self._prefill_mode)
 
     def _agreed(self, dt: float) -> float:
         """The ranks' largest ``dt`` on a mesh (their admission decisions
@@ -716,38 +831,18 @@ class LMServer:
             self._decode_mode = "eager"
             self._graph = self._graph_out = None
             self._graph_params = params
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                packed = self._decode_fused(params, *self._slot_state())
-            main.wait_stream(side)
-            return packed
+            return _on_side_stream(self.device, lambda: self._decode_fused(
+                params, *self._slot_state()))
         self._decode_mode = "replay"
         if self._graph is None:
             self._decode_mode = "capture"
-            self._capture(params)
+            self._graph, self._graph_out, self._graph_launches = _capture(
+                lambda: self._decode_fused(params, *self._slot_state()),
+                generator=self.generator)
         self._graph.replay()
         credit_launches(self._graph_launches)
         self.graph_replays += 1
         return self._graph_out
-
-    def _capture(self, params) -> None:
-        """Capture the fused step. Capture runs nothing: the wrappers'
-        counts of the capture are taken back here and credited per replay."""
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        before = launch_counts()
-        try:
-            with torch.cuda.graph(graph):
-                out = self._decode_fused(params, *self._slot_state())
-        finally:
-            per_replay = {w: n - before[w]
-                          for w, n in launch_counts().items()
-                          if n != before[w]}
-            credit_launches({w: -n for w, n in per_replay.items()})
-        self._graph, self._graph_out = graph, out
-        self._graph_launches = per_replay
 
     def _decode_once_fused(self, params, step=None) -> None:
         """One fused step; ``step``, its step span or None."""
@@ -915,14 +1010,18 @@ class LMServer:
                 if self.decode_steps else 0.0),
             "prefill_compiles": self.prefill_compiles,
             "prefill_dispatches": self.prefill_dispatches,
+            "prefill_graph_captures": self.prefill_graph_captures,
+            "prefill_graph_replays": self.prefill_graph_replays,
         }
 
     def engine_report(self) -> Dict[str, Any]:
         """Engine-level counters: prefill shapes dispatched, how chatty the
         decode loop is with the host, which attention implementation ran
         (``"plain"`` PyTorch on the CPU, ``"kernels"`` on the card), and
-        whether the fused step replayed as a CUDA graph; on a mesh, the
-        mesh."""
+        whether the fused step and a ladder prefill ran from a CUDA graph;
+        on a mesh, the mesh. ``stats``' ``prefill_graph_captures`` and
+        ``prefill_graph_replays`` count the dispatches that captured (and
+        ran) a prefill graph and that replayed one."""
         rep = {
             "fused": self.fused,
             "attention_backend": ("kernels" if self.device.type == "cuda"
@@ -934,6 +1033,7 @@ class LMServer:
                 "shapes": [list(k) for k in sorted(self._prefill_shapes)],
                 "rung_dispatches": {str(k): v for k, v in
                                     sorted(self.rung_dispatches.items())},
+                "graph": self.prefill_graph_captures > 0,
             },
             "decode": {
                 "steps": self.decode_steps,

@@ -11,9 +11,9 @@ the same report, span log, time series and audit doc, byte for byte, on the
 frontend and pipeline stacks and under a crash fault with and without
 recovery. The lmserver stack with admission control serves the reduced LM
 on each package's own weights; its report is the reference's but
-``engine.attention_backend`` and the port's ``engine.decode.graph`` (the
-report does not depend on the tokens: fixed lengths, no EOS), and its other
-documents are the reference's."""
+``engine.attention_backend`` and the port's ``engine.decode.graph`` and
+``engine.prefill.graph`` (the report does not depend on the tokens: fixed
+lengths, no EOS), and its other documents are the reference's."""
 
 import json
 import os
@@ -87,6 +87,7 @@ def test_lmserver_stack_with_admission_matches_reference(tmp_path):
     assert jrep["engine"]["attention_backend"] == "jnp"
     assert trep["engine"]["attention_backend"] == "plain"
     assert trep["engine"]["decode"].pop("graph") is False
+    assert trep["engine"]["prefill"].pop("graph") is False
     jrep["engine"]["attention_backend"] = "plain"
     assert trep == jrep
     assert trep["cluster"]["plan"]["admission"] == "shed"

@@ -935,20 +935,31 @@ def _params(model, seed):
     return model.init(torch.Generator(device=model.device).manual_seed(seed))
 
 
-def _server(model, *, graph, temperature=0.0, seed=0):
+def _server(model, *, graph, temperature=0.0, seed=0, **kw):
     """An LMServer in calibrated-simulation mode (admission decisions do
-    not depend on wall time). ``graph=False`` runs every fused step
-    eagerly, the step the graph captures."""
+    not depend on wall time). ``graph=False`` runs every fused step and
+    every ladder prefill eagerly, the work the graphs capture."""
     from repro_torch.core.metrics import VirtualClock
     from repro_torch.serving.engine import LMServer
 
     srv = LMServer(model, device=model.device, slots=4, max_len=64,
                    temperature=temperature, seed=seed, clock=VirtualClock(),
-                   service_model=lambda kind, b, t: 1e-3 * (1 + b * t))
+                   service_model=lambda kind, b, t: 1e-3 * (1 + b * t), **kw)
     if not graph:
         srv._decode_device = lambda params: srv._decode_fused(
             params, *srv._slot_state())
+        _eager_prefill(srv)
     return srv
+
+
+def _eager_prefill(srv):
+    """Make ``srv`` run every ladder prefill eagerly, the work its prefill
+    graphs capture."""
+    dev = srv.device
+    srv._prefill_graphed = lambda params, toks, vlens: srv.model.prefill(
+        params, {"tokens": torch.from_numpy(toks).to(dev),
+                 "lengths": torch.from_numpy(vlens).to(dev)},
+        max_len=srv.max_len)
 
 
 def _serve(srv, params, prompts_seed=0, n=6, max_new=8):
@@ -1122,6 +1133,224 @@ def test_capture_error_raises_without_eager_fallback(dev):
         assert srv._graph is None
 
 
+# ---------------------------------------------------------------------------
+# the ladder prefill as CUDA graphs, one a (rows, rung) shape
+# ---------------------------------------------------------------------------
+
+# prompt lengths on two length rungs a model's ladder has (the dense
+# model's 64-token ladder 8, 16, 32, 64; hymba's, capped at its window of
+# 16, 8 and 16), at batch rungs 1 and 2
+PREFILL_RUNGS = {"dense": ((3, 8), (17, 32)), "hymba": ((3, 8), (9, 16))}
+
+
+def _prefill_waves(kind, rounds=4):
+    """Waves of prompt lengths, each one dispatch: the shapes (1, short
+    rung), (2, long), (1, long), (2, short) in turn, ``rounds`` times, so
+    that the replays of every shape sit between the other shapes' in the
+    pool they share."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    short, long_ = PREFILL_RUNGS[kind]
+    out = []
+    for _ in range(rounds):
+        for (lo, hi), n in ((short, 1), (long_, 2), (long_, 1), (short, 2)):
+            out.append([int(k) for k in rng.integers(lo, hi + 1, size=n)])
+    return out
+
+
+def _serve_waves(srv, params, waves, seed=0, max_new=4):
+    """Serve each wave to its end (the AIMD budget at the 4 slots, so a
+    wave is one dispatch). Records each dispatch's logits and, after its
+    placement, every leaf of the slot cache; -> (records, the streams, the
+    kernels' launches during the run)."""
+    import numpy as np
+
+    from repro_torch.core.batching import AIMDController
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import leaves
+
+    srv.admission = AIMDController(srv.admission.slo, additive=1, init=4,
+                                   max_batch=4)
+    recs = []
+    prefill, admit = srv._prefill, srv._admit
+
+    def rec_prefill(*args):
+        logits, cache = prefill(*args)
+        recs.append({"logits": logits.clone()})
+        return logits, cache
+
+    def rec_admit(params):
+        n = len(recs)
+        admit(params)
+        if len(recs) > n:
+            recs[-1]["cache"] = [x.clone() for x in leaves(srv.cache)]
+
+    srv._prefill, srv._admit = rec_prefill, rec_admit
+    rng = np.random.default_rng(seed)
+    vocab = srv.model.cfg.vocab_size
+    before = launch_counts()
+    rids = []
+    for wave in waves:
+        n = len(recs)
+        rids += [srv.submit(rng.integers(0, vocab, size=k),
+                            max_new_tokens=max_new) for k in wave]
+        srv.run(params)
+        assert len(recs) == n + 1, wave
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return (recs, [srv.completed[r].tokens for r in rids],
+            {w.__name__: after[w] - before[w] for w in after})
+
+
+def _admit_modes(tracer):
+    """The ``(rows, rung)`` and ``mode`` of each ``engine.admit`` span."""
+    return [((s.attrs["rows"], s.attrs["rung"]), s.attrs["mode"])
+            for s in tracer.spans() if s.name == "engine.admit"]
+
+
+@pytest.mark.parametrize("kind,profiled", [("dense", False),
+                                           ("hymba", False),
+                                           ("hymba", True)])
+def test_prefill_graph_replays_equal_eager_prefill(dev, kind, profiled):
+    """Two length rungs at two batch rungs, interleaved, through a server
+    whose ladder prefills run from CUDA graphs and through one that runs
+    them eagerly (both decode from their graph): each shape's first
+    dispatch runs eagerly, its second captures, the later ones replay; the
+    logits of every dispatch and every slot-cache leaf after its placement
+    are the eager server's bit for bit, and so are the streams and each
+    kernel's launch count (the capture's taken back, each replay's
+    credited). ``profiled``: with ``torch.profiler`` recording throughout,
+    as the benchmark's traced runs do."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.tracer import Tracer
+
+    model = _small_model(kind, dev)
+    params = _params(model, 0)
+    waves = _prefill_waves(kind)
+    runs = []
+    for graphed in (True, False):
+        tr = Tracer()
+        srv = _server(model, graph=True, tracer=tr)
+        if not graphed:
+            _eager_prefill(srv)
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with ctx:
+            runs.append(_serve_waves(srv, params, waves) + (srv, tr))
+    (g_recs, g_toks, g_launch, g_srv, g_tr), (e_recs, e_toks, e_launch,
+                                              e_srv, e_tr) = runs
+    modes = _admit_modes(g_tr)
+    assert len(modes) == len(waves) == 16
+    for shape in {sh for sh, _ in modes}:
+        assert [m for sh, m in modes if sh == shape] == [
+            "eager", "capture", "replay", "replay"], shape
+    assert len({sh for sh, _ in modes}) == 4
+    assert {m for _, m in _admit_modes(e_tr)} == {"eager"}
+    assert g_srv.stats["prefill_graph_captures"] == 4
+    assert g_srv.stats["prefill_graph_replays"] == 8
+    assert g_srv.engine_report()["prefill"]["graph"] is True
+    assert e_srv.stats["prefill_graph_captures"] == 0
+    assert e_srv.engine_report()["prefill"]["graph"] is False
+    for i, (g, e) in enumerate(zip(g_recs, e_recs, strict=True)):
+        assert torch.equal(g["logits"], e["logits"]), i
+        for j, (a, b) in enumerate(zip(g["cache"], e["cache"], strict=True)):
+            assert torch.equal(a, b), (i, j)
+    assert g_toks == e_toks
+    assert g_launch == e_launch
+    assert g_launch["flash_attention_op"] == (
+        model.cfg.num_layers * len(waves))
+
+
+@pytest.mark.parametrize("kind", ["hymba", "moe"])
+def test_exact_prefill_stays_eager(dev, kind):
+    """Dispatches off the ladder run eagerly however often their shape
+    comes: hymba's prompts past its window (the ladder's cap) and every
+    prompt of a model that pads none (dbrx's experts)."""
+    from repro_torch.obs.tracer import Tracer
+
+    model = _small_model(kind, dev)
+    assert bool(model.extras.get("prompt_pad")) is (kind == "hymba")
+    params = _params(model, 0)
+    tr = Tracer()
+    srv = _server(model, graph=True, tracer=tr)
+    waves = [[20], [20], [20], [20, 20], [20, 20], [20, 20]]
+    _serve_waves(srv, params, waves)
+    modes = _admit_modes(tr)
+    assert [m for _, m in modes] == ["eager"] * len(waves)
+    assert {sh for sh, _ in modes} == {(1, 20), (2, 20)}
+    assert srv.stats["prefill_graph_captures"] == 0
+    assert srv.stats["prefill_graph_replays"] == 0
+    assert srv.engine_report()["prefill"]["graph"] is False
+
+
+def test_new_params_tree_recaptures_the_prefill(dev):
+    """Another params tree starts every prefill shape over: eager, then a
+    new capture; the streams equal an eager server's on the same
+    sequence."""
+    from repro_torch.obs.tracer import Tracer
+
+    model = _small_model("dense", dev)
+    p0, p1 = _params(model, 0), _params(model, 1)
+    waves = [[5], [6], [7]]
+    streams = []
+    for graphed in (True, False):
+        tr = Tracer()
+        srv = _server(model, graph=graphed, tracer=tr)
+        first = _serve_waves(srv, p0, waves)[1]
+        graphs = dict(srv._prefill_graphs)
+        second = _serve_waves(srv, p1, waves, seed=1)[1]
+        if graphed:
+            assert [m for _, m in _admit_modes(tr)] == [
+                "eager", "capture", "replay"] * 2
+            assert srv._prefill_graph_params is p1
+            assert srv._prefill_graphs[(1, 8)] is not graphs[(1, 8)]
+        streams.append((first, second))
+    assert streams[0] == streams[1]
+
+
+def test_prefill_capture_error_raises_without_eager_fallback(dev):
+    """An error while a prefill is captured propagates, the launch counts
+    as they were; the shape's next dispatch tries the capture again and
+    raises again: none runs eagerly in its place."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+
+    model = _small_model("dense", dev)
+    params = _params(model, 0)
+    srv = _server(model, graph=True)
+    prefill = model.prefill
+
+    def refuse_capture(*args, **kw):
+        out = prefill(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused during capture")
+        return out
+
+    srv.model = dataclasses.replace(model, prefill=refuse_capture)
+    rng = np.random.default_rng(0)
+    srv.submit(rng.integers(0, model.cfg.vocab_size, size=5),
+               max_new_tokens=2)
+    srv.run(params)                          # the shape's eager dispatch
+    assert srv.prefill_dispatches == 1
+    for _ in range(2):
+        srv.submit(rng.integers(0, model.cfg.vocab_size, size=6),
+                   max_new_tokens=2)
+        before = launch_counts()
+        with pytest.raises(RuntimeError, match="refused during capture"):
+            srv.step(params)
+        assert launch_counts() == before
+        assert srv.prefill_graph_captures == 0
+        assert srv._prefill_graphs[(1, 8)] is None
+
+
 def test_contextual_store_on_card_matches_cpu(dev):
     """Batched Exp3 and Exp4 feedback on the card against the same batches
     on the CPU: batches of 64 users out of 50, so users repeat, and each
@@ -1172,8 +1401,9 @@ def test_frontend_scenario_on_card_matches_cpu(dev):
 
 def test_lmserver_scenario_on_card_matches_cpu(dev):
     """The poisson scenario's lmserver stack on the card (its decode step
-    replayed from a CUDA graph) and on the CPU: the reports agree but for
-    ``engine.attention_backend`` and ``engine.decode.graph``; the kernels
+    and its ladder prefills replayed from CUDA graphs) and on the CPU: the
+    reports agree but for ``engine.attention_backend``,
+    ``engine.decode.graph`` and ``engine.prefill.graph``; the kernels
     ran."""
     import json
 
@@ -1187,13 +1417,17 @@ def test_lmserver_scenario_on_card_matches_cpu(dev):
     assert card["engine"]["attention_backend"] == "kernels"
     assert card["engine"]["decode"].pop("graph") is True
     assert cpu["engine"]["decode"].pop("graph") is False
+    assert card["engine"]["prefill"].pop("graph") is True
+    assert cpu["engine"]["prefill"].pop("graph") is False
     cpu["engine"]["attention_backend"] = "kernels"
     assert json.dumps(card, sort_keys=True) == json.dumps(cpu, sort_keys=True)
 
 
 def _engine_free(rep, sections):
     """A report with each named section's two engine fields taken out,
-    after checking what they say."""
+    after checking what they say, and its ``engine.prefill.graph`` (the
+    card replays a ladder prefill from a graph where a tier dispatched its
+    shape more than twice; the CPU never)."""
     import json
 
     rep = json.loads(json.dumps(rep))
@@ -1204,6 +1438,8 @@ def _engine_free(rep, sections):
             sec = sec[key]
         seen.append((sec["engine"].pop("attention_backend"),
                      sec["engine"]["decode"].pop("graph")))
+        graphed = sec["engine"]["prefill"].pop("graph")
+        assert graphed in (False, seen[-1][0] == "kernels"), graphed
     return rep, seen
 
 

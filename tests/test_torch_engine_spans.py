@@ -96,6 +96,25 @@ def test_one_span_a_dispatch_and_a_decode_step(lm, fused):
         len(r.tokens) - 1 for r in srv.completed.values())
 
 
+@pytest.mark.parametrize("fused,pad", [(True, None), (True, False),
+                                       (False, None)],
+                         ids=["ladder", "exact", "reference"])
+def test_cpu_prefill_runs_eagerly(lm, fused, pad):
+    """On the CPU no prefill runs from a CUDA graph, on the ladder or off
+    it: every ``engine.admit`` span's ``mode`` is "eager", the graph
+    counters in ``stats`` stay 0 and ``engine.prefill.graph`` is false."""
+    tr = Tracer()
+    srv = _serve(lm, tr, (5, 9, 5, 9, 17, 5, 9, 17, 5), budget=2,
+                 fused=fused, pad_prompts=pad)
+    admits = _steps(tr, "engine.admit")
+    assert len(admits) == srv.stats["prefill_dispatches"] > 3
+    assert {a.attrs["padded"] for a in admits} == {pad is None and fused}
+    assert [a.attrs["mode"] for a in admits] == ["eager"] * len(admits)
+    assert srv.stats["prefill_graph_captures"] == 0
+    assert srv.stats["prefill_graph_replays"] == 0
+    assert srv.engine_report()["prefill"]["graph"] is False
+
+
 @pytest.mark.parametrize("virtual", [False, True], ids=["wall", "virtual"])
 def test_children_inside_their_parent_in_order(lm, virtual):
     tr = Tracer()

@@ -15,7 +15,8 @@ Parity:
   (in process and as ``python -m``);
 * ``lmcascade``, the reduced LM in both tiers: on the reference's weights,
   bridged, the report equals the reference's but ``engine.attention_backend``
-  and the port's ``engine.decode.graph`` in each tier's section; so do the
+  and the port's ``engine.decode.graph`` and ``engine.prefill.graph`` in
+  each tier's section; so do the
   span log, time series and audit doc; each request escalates or not as
   there, and each tier's token streams are the reference's up to a bf16
   near-tie (ROADMAP.md §C). At thresholds 0 (nothing escalates) and 1.5
@@ -209,6 +210,7 @@ def _assert_cascade_documents_match(want, got):
         assert jt["engine"]["attention_backend"] == "jnp"
         assert tt["engine"]["attention_backend"] == "plain"
         assert tt["engine"]["decode"].pop("graph") is False
+        assert tt["engine"]["prefill"].pop("graph") is False
         jt["engine"]["attention_backend"] = "plain"
     assert (json.dumps(trep, sort_keys=True, indent=2)
             == json.dumps(jrep, sort_keys=True, indent=2))

@@ -8,7 +8,7 @@ seeded with the scenario's seed), and through a subclass that serves the
 reference's weights, bridged. Both reports equal the reference's byte for
 byte except ``engine.attention_backend`` (the implementation that ran:
 ``"jnp"`` there, ``"plain"`` here) and the port's ``engine.decode.graph``
-(false: no CUDA graph on the CPU); so do the span log, time series and
+and ``engine.prefill.graph`` (false: no CUDA graph on the CPU); so do the span log, time series and
 audit documents. On the bridged weights the token streams are the
 reference's up to a bf16 near-tie (ROADMAP.md §C)."""
 
@@ -104,6 +104,7 @@ def _assert_documents_match(want, got):
     assert jrep["engine"]["attention_backend"] == "jnp"
     assert trep["engine"]["attention_backend"] == "plain"
     assert trep["engine"]["decode"].pop("graph") is False
+    assert trep["engine"]["prefill"].pop("graph") is False
     jrep["engine"]["attention_backend"] = "plain"
     assert (json.dumps(trep, sort_keys=True, indent=2)
             == json.dumps(jrep, sort_keys=True, indent=2))

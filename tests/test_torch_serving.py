@@ -29,6 +29,16 @@ from repro_torch.serving.engine import LMServer
 from repro_torch.serving.sampler import sample
 
 MAX_LEN = 48
+# the port's prefill-graph counters, which the reference lacks: ladder
+# prefills replay from CUDA graphs only on the card, so here they stay 0
+PORT_STATS = ("prefill_graph_captures", "prefill_graph_replays")
+
+
+def reference_stats(srv):
+    """The port server's ``stats`` without :data:`PORT_STATS`, each 0."""
+    stats = dict(srv.stats)
+    assert [stats.pop(k) for k in PORT_STATS] == [0, 0]
+    return stats
 
 
 def _service_model(kind, batch, tokens):
@@ -65,7 +75,7 @@ def test_reference_loop_greedy_streams_identical(monkeypatch, name, seed):
     jsrv, tsrv = assert_greedy_streams_match(monkeypatch, name, seed,
                                              fused=False)
     assert tsrv.engine_report()["fused"] is False
-    assert tsrv.stats == jsrv.stats
+    assert reference_stats(tsrv) == jsrv.stats
     assert tsrv.decode_host_syncs == tsrv.decode_steps + sum(
         len(r.tokens) - 1 for r in tsrv.completed.values())
 
@@ -129,7 +139,8 @@ def test_calibrated_report_byte_identical():
     both engines on the same weights and arrivals. The reports agree byte
     for byte except ``engine.attention_backend``, which names the
     implementation that ran (``"jnp"`` there, ``"plain"`` here), and the
-    port's ``engine.decode.graph`` (no CUDA graph on the CPU)."""
+    port's ``engine.decode.graph`` and ``engine.prefill.graph`` (no CUDA
+    graph on the CPU)."""
     assert_scenario_reports_match(fused=True)
 
 
@@ -176,14 +187,16 @@ def assert_scenario_reports_match(*, fused):
 
 def assert_reports_match(jsrv, tsrv):
     """Same stats, the same report byte for byte but the backend name
-    (``"jnp"`` there, ``"plain"`` here) and the port's graph flag (false on
-    the CPU), the same tokens per request. Returns the JAX report."""
-    assert jsrv.stats == tsrv.stats
+    (``"jnp"`` there, ``"plain"`` here) and the port's graph flags and
+    counters (false and 0 on the CPU), the same tokens per request. Returns
+    the JAX report."""
+    assert jsrv.stats == reference_stats(tsrv)
     jrep = jsrv.report()
     trep = tsrv.report()
     assert jrep["engine"]["attention_backend"] == "jnp"
     assert trep["engine"]["attention_backend"] == "plain"
     assert trep["engine"]["decode"].pop("graph") is False
+    assert trep["engine"]["prefill"].pop("graph") is False
     jrep["engine"]["attention_backend"] = "plain"
     assert (json.dumps(jrep, sort_keys=True, indent=2)
             == json.dumps(trep, sort_keys=True, indent=2))
@@ -241,7 +254,8 @@ def test_prefill_service_time_excludes_the_first_token_sample(monkeypatch):
         runs.append(dict(
             prefill_time=[srv.completed[r].prefill_time for r in rids],
             aimd=(srv.admission._max, srv.admission.max_batch_size),
-            spans=spans, stats=srv.stats,
+            spans=spans, stats=(reference_stats(srv)
+                                if isinstance(srv, LMServer) else srv.stats),
             tokens=[srv.completed[r].tokens for r in rids]))
     jrun, trun = runs
     assert jrun["prefill_time"] == [0.0] * len(prompts)
